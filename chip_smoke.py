@@ -1,0 +1,565 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py          # on a machine with a CUDA GPU
+    python3 chip_smoke.py --cpu    # rehearsal on the CPU, at small sizes
+
+Drives the port (``src/repro_torch``) through its main path — the paper's
+FedSGD rounds over the approximate uplink — and holds both CUDA kernels
+against their plain PyTorch versions. Phases, each of which fails the run
+(non-zero exit) when it fails:
+
+1. Device: name, count, and ``nvidia-smi``'s name and power limit.
+2. Build: the kernels from ``src/repro_torch/kernels/csrc`` with nvcc
+   (time, and ``-Xptxas -v``'s registers and spills; a build reused from
+   an earlier run in the same checkout reports the log saved with it).
+3. K1 against its plain version on the card: k in {2,4,8} x fading in
+   {rayleigh, awgn, block_rayleigh} x wire in {f32, bf16} at C=8,
+   N=16,384, masked ``num_active`` in {1,3,5}, and naive mode. Identical
+   bits and errors at noise power 0. With noise identical is expected;
+   any word that differs must trace to a symbol whose demod pre-round
+   value lies within 1e-4 of a half-integer (``EDGE``).
+4. K2 against its plain version (same sweep, same rule) and K2 against
+   K1 followed by ``fedsgd_aggregate_batch`` inside the port, bit for bit;
+   in naive mode finite lanes bit for bit and NaN positions equal.
+5. The main path at full width: the paper CNN (D = 21,840 parameters) on
+   100 non-iid clients, QPSK approx uplink at 10 dB on the kernel path,
+   3 layered rounds (K1) and 3 fused rounds (K2). Launch counters are set
+   to 0 just before each path and read just after; each kernel must have
+   launched once per round. Each round's time is split into gradients,
+   uplink (with its key-schedule and kernel parts), apply and eval. A
+   4-client world run on the GPU and on the CPU checks the result against
+   the CPU plain path.
+6. Times at the main-path shape (C=100, N=22,528, QPSK, f32): kernel and
+   plain version with CUDA events (median of single launches after a
+   warm-up), each kernel's bound from bytes and operations, and the
+   per-round key schedule (client keys + kernel seeds) on the host and on
+   the card.
+7. The result: a JSON line of the kernels, ``nvidia-smi``'s line, and as
+   the last line ``{"ok": true, "device": {...}}``.
+
+Needs one GPU, no network, and finishes in a few minutes. Exits non-zero,
+printing no result, without a GPU or outside a checkout of the repository.
+"""
+
+from __future__ import annotations
+
+import os
+
+# cuBLAS needs this before its first call for deterministic algorithms.
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import argparse  # noqa: E402
+import dataclasses  # noqa: E402
+import json  # noqa: E402
+import math  # noqa: E402
+import pathlib  # noqa: E402
+import statistics  # noqa: E402
+import subprocess  # noqa: E402
+import sys  # noqa: E402
+import time  # noqa: E402
+
+ROOT = pathlib.Path(__file__).resolve().parent
+SRC = ROOT / "src"
+EDGE = 1e-4  # demod pre-round proximity to a half-integer that may flip
+K1_SOURCE = "src/repro_torch/kernels/csrc/approx_channel.cu"
+K1_REPLACES = "src/repro/kernels/approx_channel.py:405"
+K2_REPLACES = "src/repro/kernels/approx_channel.py:294"
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s and float32
+# operations/s outside the tensor cores. Integer operations are counted
+# against the same float32 rate, which no integer unit exceeds, so the
+# bound stays a lower bound.
+PEAK_BYTES = 3.35e12
+PEAK_F32 = 67e12
+
+
+class PhaseError(RuntimeError):
+    """A phase found the port at fault."""
+
+
+def _log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def _check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise PhaseError(msg)
+
+
+# ------------------------------------------------------------------ helpers
+
+
+class Clock:
+    """Device-side timing: CUDA events on the GPU, the host clock on the
+    CPU rehearsal. ``median_ms`` times single calls after a warm-up."""
+
+    def __init__(self, torch, device):
+        self.torch, self.device = torch, device
+
+    def sync(self):
+        if self.device.type == "cuda":
+            self.torch.cuda.synchronize(self.device)
+
+    def host_median_ms(self, fn, reps: int, warmup: int = 2) -> float:
+        """Median host-clock time of ``fn`` between device synchronises:
+        for steps whose cost is launching work, not the work itself."""
+        for _ in range(warmup):
+            fn()
+        times = []
+        for _ in range(reps):
+            self.sync()
+            t0 = time.perf_counter()
+            fn()
+            self.sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    def median_ms(self, fn, reps: int, warmup: int = 2) -> float:
+        for _ in range(warmup):
+            fn()
+        self.sync()
+        times = []
+        for _ in range(reps):
+            if self.device.type == "cuda":
+                start = self.torch.cuda.Event(enable_timing=True)
+                end = self.torch.cuda.Event(enable_timing=True)
+                start.record()
+                fn()
+                end.record()
+                end.synchronize()
+                times.append(start.elapsed_time(end))
+            else:
+                t0 = time.perf_counter()
+                fn()
+                times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+
+def _k1_ops_per_symbol(k: int, fading: str) -> tuple[int, int]:
+    """(float ops, integer ops) of one symbol of the channel chain, each
+    libdevice call (log, sqrt, cos, sin, rint) and divide counted as one.
+
+    Per symbol: symbol and axis-bit extraction (2 + 8p int), two Gray
+    decodes (12 int), constellation point (8 float), symbol index (3 int),
+    a noise Gauss pair (two hashes of 19 int, two uniforms of 1 int +
+    3 float, Box-Muller 8 float), noise scaling (2 float), the fading pair
+    (the same again plus 4 float; 1 float for awgn; +1 int for the block
+    index), |c|^2 (4 float), equalisation (10 float), two demods (14
+    float), two Gray encodes (4 int), reassembly (8p + 2 int).
+    """
+    p = k // 2
+    gauss_f, gauss_i = 14, 40
+    f = 8 + gauss_f + 2 + 4 + 10 + 14
+    i = 2 + 8 * p + 12 + 3 + gauss_i + 4 + 8 * p + 2
+    if fading == "awgn":
+        f += 1 - 4
+    else:
+        f += gauss_f
+        i += gauss_i + (1 if fading == "block_rayleigh" else 0)
+    return f, i
+
+
+def _bound(c: int, n: int, k: int, fading: str, word_bits: int,
+           kernel: str) -> dict:
+    """Least time for K1 or K2 at this shape: bytes over the memory rate
+    vs operations over the float32 rate. Each input read once, each
+    output written once."""
+    wb = word_bits // 8
+    s = word_bits // k
+    f_sym, i_sym = _k1_ops_per_symbol(k, fading)
+    # per word: clamp, xor, popcount (3 int); per client: 2 sqrt + 1 mul
+    ops = c * n * (s * (f_sym + i_sym) + 3) + 3 * c
+    if kernel == "k1":
+        nbytes = c * n * wb * 2 + c * 12 + c * 4
+    else:
+        ops += c * n * 2  # w * x_hat, then + acc
+        nbytes = c * n * wb + n * 4 + c * 16 + c * 4
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = ops / PEAK_F32 * 1e3
+    return {"bytes": nbytes, "ops": ops, "bytes_ms": t_bytes,
+            "ops_ms": t_ops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+# ------------------------------------------------------------------- phases
+
+
+def phase_device(torch, device) -> str:
+    _log("== phase 1: device")
+    if device.type == "cpu":
+        _log("device: cpu (rehearsal; no GPU numbers are produced)")
+        return "cpu (rehearsal)"
+    _log(f"device: {torch.cuda.get_device_name(0)} x "
+         f"{torch.cuda.device_count()}, torch {torch.__version__}, "
+         f"CUDA {torch.version.cuda}")
+    proc = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    _check(proc.returncode == 0, f"nvidia-smi failed: {proc.stderr}")
+    smi = proc.stdout.strip().splitlines()[0]
+    _log(f"nvidia-smi: {smi}")
+    return smi
+
+
+def phase_build(device) -> None:
+    _log("== phase 2: build")
+    if device.type == "cpu":
+        _log("build: skipped on the CPU (no nvcc; wrappers run the plain "
+             "versions)")
+        return
+    from repro_torch.kernels import build
+
+    lib, log, seconds = build.build("approx_channel")
+    if seconds:
+        _log(f"build: {lib.name} in {seconds:.1f} s")
+    else:
+        _log(f"build: {lib.name} reused from an earlier build in this "
+             f"checkout (same source and flags); its ptxas log:")
+    # -Xptxas -v, folded per kernel family: instances, registers, spills
+    summary, kernel = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            kernel = "k1" if "k1_approx_channel_batch" in line else "k2"
+            summary.setdefault(kernel, {"n": 0, "regs": [], "spill": 0})
+            summary[kernel]["n"] += 1
+        elif kernel and "spill stores" in line:
+            summary[kernel]["spill"] += int(line.split("bytes spill stores")[0]
+                                            .split(",")[-1])
+        elif kernel and "Used" in line and "registers" in line:
+            summary[kernel]["regs"].append(
+                int(line.split("Used")[1].split("registers")[0]))
+    for kernel, st in sorted(summary.items()):
+        _log(f"  ptxas {kernel}: {st['n']} instances, registers "
+             f"{min(st['regs'])}-{max(st['regs'])}, spill stores "
+             f"{st['spill']} bytes")
+    _check(set(summary) == {"k1", "k2"}, "ptxas reported no kernels")
+
+
+def _sweep_inputs(torch, device, c, n, word_bits, seed):
+    g = torch.Generator().manual_seed(seed)
+    x = (torch.rand((c, n), generator=g) * 1.8 - 0.9)
+    x = x.to(torch.bfloat16 if word_bits == 16 else torch.float32)
+    seeds = torch.randint(0, 2**32, (c,), generator=g, dtype=torch.int64)
+    npow = torch.full((c,), 1e-4, dtype=torch.float32)  # 10 dB at G0 = 1e-3
+    npow[0] = 0.0  # row 0 noiseless: the exact grade
+    gains = torch.full((c,), 1e-3, dtype=torch.float32)
+    w = torch.rand((c,), generator=g) * 1.8 + 0.2
+    return [t.to(device) for t in (x, seeds, npow, gains, w)]
+
+
+def _bits(torch, t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+def _compare_k1(torch, x, seeds, npow, gains, kw, num_active=None):
+    """K1 kernel vs plain. Returns (words differing, max |err| over finite
+    values, the kernel's output, the plain version's edge distances)."""
+    from repro_torch.kernels import approx_channel as ac
+    from repro_torch.kernels import ref
+
+    xk, ek = ac.approx_channel_batch_kernel(x, seeds, npow, gains,
+                                            num_active=num_active, **kw)
+    xp, ep, edges = ref.approx_channel_batch_ref(
+        x, seeds, npow, gains, num_active=num_active, with_edges=True, **kw)
+    bk, bp = _bits(torch, xk), _bits(torch, xp)
+    diff = bk != bp
+    noiseless = npow == 0
+    _check(not bool(diff[noiseless].any()),
+           f"K1 differs on a noiseless row ({kw})")
+    _check(bool(torch.equal(ek[noiseless], ep[noiseless])),
+           f"K1 error count differs on a noiseless row ({kw})")
+    _check(bool((edges[diff] < EDGE).all()),
+           f"K1 word differs away from a decision edge ({kw})")
+    if not bool(diff.any()):
+        _check(bool(torch.equal(ek, ep)), f"K1 error counts differ ({kw})")
+    err = (xk.float() - xp.float()).abs()
+    err = err[torch.isfinite(err)]
+    return int(diff.sum()), float(err.max()) if err.numel() else 0.0, \
+        xk, edges
+
+
+def _compare_k2(torch, x, seeds, npow, gains, w, kw, xk1, edges,
+                num_active=None):
+    """K2 kernel vs plain and vs K1 + fedsgd_aggregate_batch."""
+    from repro_torch.core import aggregation
+    from repro_torch.kernels import approx_channel as ac
+    from repro_torch.kernels import ref
+
+    ak, ek = ac.approx_channel_batch_aggregate_kernel(
+        x, seeds, npow, gains, w, num_active=num_active, **kw)
+    ap, ep = ref.approx_channel_batch_aggregate_ref(
+        x, seeds, npow, gains, w, num_active=num_active, **kw)
+    rows = x.shape[0] if num_active is None else num_active
+    calm = (edges[:rows] >= EDGE).all(dim=0)
+    nan_k, nan_p = torch.isnan(ak), torch.isnan(ap)
+    _check(bool(torch.equal(nan_k[calm], nan_p[calm])),
+           f"K2 NaN positions differ ({kw})")
+    fin = calm & ~nan_p
+    _check(bool(torch.equal(_bits(torch, ak)[fin], _bits(torch, ap)[fin])),
+           f"K2 differs from its plain version ({kw})")
+    if bool(calm.all()):
+        _check(bool(torch.equal(ek, ep)), f"K2 error counts differ ({kw})")
+    # K2 with normalized weights == K1's rows through fedsgd_aggregate_batch
+    # (which normalizes the same weights the same way on the same device).
+    wk = torch.zeros_like(w)
+    wk[:rows] = aggregation.normalize_weights(w[:rows])
+    ak_n, _ = ac.approx_channel_batch_aggregate_kernel(
+        x, seeds, npow, gains, wk, num_active=num_active, **kw)
+    lay = aggregation.fedsgd_aggregate_batch(xk1[:rows].float(), w[:rows])
+    nan_l = torch.isnan(lay)
+    _check(bool(torch.equal(nan_l, torch.isnan(ak_n))),
+           f"K2 vs K1+aggregate NaN positions differ ({kw})")
+    _check(bool(torch.equal(_bits(torch, lay)[~nan_l],
+                            _bits(torch, ak_n)[~nan_l])),
+           f"K2 differs from K1 + fedsgd_aggregate_batch ({kw})")
+    err = (ak - ap).abs()
+    err = err[torch.isfinite(err)]
+    return float(err.max()) if err.numel() else 0.0
+
+
+def phase_kernels(torch, device, small: bool) -> None:
+    _log("== phase 3+4: K1 and K2 against their plain versions")
+    c, n = (4, 2048) if small else (8, 16384)
+    total_diff = 0
+    for word_bits in (32, 16):
+        mask = 0xBFFF if word_bits == 16 else 0xBFFFFFFF
+        for k in (2, 4, 8):
+            for fading in ("rayleigh", "awgn", "block_rayleigh"):
+                x, seeds, npow, gains, w = _sweep_inputs(
+                    torch, device, c, n, word_bits, seed=k * 10 + word_bits)
+                kw = dict(bits_per_symbol=k, fading=fading,
+                          clamp_mask=mask, word_bits=word_bits)
+                nd, e1, xk, edges = _compare_k1(torch, x, seeds, npow, gains,
+                                                kw)
+                e2 = _compare_k2(torch, x, seeds, npow, gains, w, kw, xk,
+                                 edges)
+                total_diff += nd
+                _log(f"  wire={word_bits} k={k} {fading:14s} K1 words "
+                     f"differing {nd} (edge-bound), max|err| K1 {e1:.3g} "
+                     f"K2 {e2:.3g}")
+    x, seeds, npow, gains, w = _sweep_inputs(torch, device, c, n, 32, 99)
+    kw = dict(bits_per_symbol=2, fading="rayleigh", clamp_mask=0xBFFFFFFF,
+              word_bits=32)
+    for na in (1, 3, 5):
+        na = min(na, c)
+        nd, _, xk, edges = _compare_k1(torch, x, seeds, npow, gains, kw,
+                                       num_active=na)
+        _check(not bool(xk[na:].any()), "K1 masked rows are not zero")
+        _compare_k2(torch, x, seeds, npow, gains, w, kw, xk, edges,
+                    num_active=na)
+        total_diff += nd
+        _log(f"  num_active={na}: masked K1/K2 match")
+    npow = torch.full_like(npow, 1e-3)  # 0 dB, no clamp: NaN payloads
+    kw = dict(bits_per_symbol=2, fading="rayleigh", clamp_mask=0xFFFFFFFF,
+              word_bits=32)
+    nd, _, xk, edges = _compare_k1(torch, x, seeds, npow, gains, kw)
+    _check(bool(torch.isnan(xk).any()), "naive mode produced no NaN")
+    _compare_k2(torch, x, seeds, npow, gains, w, kw, xk, edges)
+    total_diff += nd
+    _log(f"  naive mode: NaN contract holds; words differing in the whole "
+         f"sweep: {total_diff}")
+
+
+def _world(n_clients, small: bool):
+    from repro_torch.data import synth_mnist
+    from repro_torch.fl import partition
+
+    (img, lab), (ti, tl) = (synth_mnist.train_test(30, 10) if small
+                            else synth_mnist.train_test(300, 60))
+    parts = partition.non_iid_partition(img, lab, n_clients=n_clients)
+    cx, cy = partition.stack_clients(parts, per_client=96)
+    return cx, cy, ti, tl
+
+
+def phase_main_path(torch, device, small: bool) -> dict:
+    from repro_torch.configs.mnist_cnn import config
+    from repro_torch.core import channel, prng, transport
+    from repro_torch.fl import cnn
+    from repro_torch.fl.loop import run_fl
+    from repro_torch.kernels import approx_channel as ac
+
+    _log("== phase 5: main path at full width")
+    n_clients = 4 if small else 100
+    cx, cy, ti, tl = _world(n_clients, small)
+    cfg = config()
+    tcfg = transport.TransportConfig(
+        mode="approx", modulation="qpsk",
+        channel=channel.ChannelConfig(snr_db=10.0), use_kernel=True)
+    rounds = 3
+    launches = {}
+    for fused, kernel in ((False, "k1"), (True, "k2")):
+        ac.reset_launch_counts()
+        res = run_fl(cfg, tcfg, cx, cy, ti, tl, n_rounds=rounds,
+                     batch_per_round=32, eval_every=1, seed=0,
+                     fused_aggregate=fused, device=device)
+        counts = ac.launch_counts()
+        launches[kernel] = counts[kernel]
+        want = rounds if device.type == "cuda" else 0
+        other = "k2" if kernel == "k1" else "k1"
+        _check(counts[kernel] == want and counts[other] == 0,
+               f"{'fused' if fused else 'layered'} path launched {counts}, "
+               f"expected {want} {kernel} launches")
+        _check(all(math.isfinite(a) for a in res.accuracy),
+               "accuracy is not finite")
+        _check(all(math.isfinite(a) and a > 0 for a in res.airtime_s),
+               "airtime is not finite")
+        name = "fused (K2)" if fused else "layered (K1)"
+        _log(f"  {name}: {n_clients} clients, launches {counts}, accuracy "
+             f"{res.accuracy}, airtime {res.airtime_s} s")
+        for r, ph in enumerate(res.phase_s):
+            rest = ph["uplink"] - ph["uplink_keys"] - ph["uplink_kernel"]
+            _log(f"    round {r}: " + ", ".join(
+                f"{k} {v * 1e3:.3f} ms" for k, v in ph.items())
+                + f", uplink_rest {rest * 1e3:.3f} ms")
+    leaves, _ = transport.tree_flatten(
+        cnn.init_params(prng.PRNGKey(0), cfg, "cpu"))
+    payload = sum(v.numel() for v in leaves)
+    _check(payload == 21840, f"paper CNN has {payload} parameters, not 21840")
+    return launches
+
+
+def phase_reference(torch, device) -> None:
+    """A small world on the GPU and through the CPU plain path."""
+    from repro_torch.configs.mnist_cnn import config
+    from repro_torch.core import channel, transport
+    from repro_torch.fl.loop import run_fl
+
+    _log("== phase 5b: small-world run against the CPU plain path")
+    cx, cy, ti, tl = _world(4, small=True)
+    cfg = dataclasses.replace(config(), lr=0.1)
+    tcfg = transport.TransportConfig(
+        mode="approx", channel=channel.ChannelConfig(snr_db=10.0),
+        use_kernel=True)
+    kw = dict(n_rounds=3, batch_per_round=8, eval_every=1, seed=3)
+    for fused in (False, True):
+        a = run_fl(cfg, tcfg, cx, cy, ti, tl, fused_aggregate=fused,
+                   device=device, **kw)
+        b = run_fl(cfg, tcfg, cx, cy, ti, tl, fused_aggregate=fused,
+                   device="cpu", **kw)
+        # conv/matmul sum in another order on the card: trajectory grade,
+        # at most 2 of the 100 test images apart at each eval point.
+        tol = 2 / len(tl) + 1e-6
+        _check(all(abs(p - q) <= tol for p, q in zip(a.accuracy, b.accuracy)),
+               f"GPU {a.accuracy} vs CPU {b.accuracy} accuracy")
+        _check(all(abs(p - q) <= 1e-6 * q
+                   for p, q in zip(a.airtime_s, b.airtime_s)),
+               "GPU and CPU airtime differ")
+        _log(f"  fused={fused}: GPU {a.accuracy} vs CPU {b.accuracy}")
+
+
+def phase_times(torch, device, small: bool, launches: dict) -> list:
+    from repro_torch.core import aggregation, prng, transport
+    from repro_torch.kernels import approx_channel as ac
+    from repro_torch.kernels import ops, ref
+
+    _log("== phase 6: times at the main-path shape")
+    c, n = (4, 2048) if small else (100, 22528)
+    clock = Clock(torch, device)
+    g = torch.Generator().manual_seed(6)
+    x = (torch.randn((c, n), generator=g) * 1e-2).to(device)
+    seeds = ops._seed_from_key(transport.client_keys(prng.PRNGKey(6), c)).to(
+        device)
+    npow = torch.full((c,), 1e-4, dtype=torch.float32, device=device)
+    gains = torch.full((c,), 1e-3, dtype=torch.float32, device=device)
+    w = aggregation.normalize_weights(torch.ones(c)).to(device)
+    kw = dict(bits_per_symbol=2, fading="rayleigh", clamp_mask=0xBFFFFFFF,
+              word_bits=32)
+    nd, e1, xk, edges = _compare_k1(torch, x, seeds, npow, gains, kw)
+    e2 = _compare_k2(torch, x, seeds, npow, gains, w, kw, xk, edges)
+    _log(f"  at C={c}, N={n}: K1 words differing {nd}, max|err| K1 {e1:.3g},"
+         f" K2 {e2:.3g}")
+    reps, preps = (50, 5) if device.type == "cuda" else (3, 2)
+    # The round's key schedule on the host, where the engine runs it
+    # (seeds then copied over), and on the device.
+    for where in ("cpu", device):
+        key = prng.PRNGKey(6, device=where)
+        ms = clock.host_median_ms(lambda: ops._seed_from_key(
+            transport.client_keys(key, c)).to(device), reps)
+        _log(f"  key schedule (client_keys + kernel seeds, {c} clients) on "
+             f"{torch.device(where).type}: {ms:.3f} ms (median of {reps})")
+    arms = {
+        "k1": (lambda: ac.approx_channel_batch_kernel(x, seeds, npow, gains,
+                                                       **kw),
+               lambda: ref.approx_channel_batch_ref(x, seeds, npow, gains,
+                                                    **kw), e1, K1_REPLACES),
+        "k2": (lambda: ac.approx_channel_batch_aggregate_kernel(
+                   x, seeds, npow, gains, w, **kw),
+               lambda: ref.approx_channel_batch_aggregate_ref(
+                   x, seeds, npow, gains, w, **kw), e2, K2_REPLACES),
+    }
+    rows = []
+    for name, (kern, plain, err, replaces) in arms.items():
+        # plain, kernel, kernel, plain: the two orders average out drift
+        p1 = clock.median_ms(plain, preps)
+        k1 = clock.median_ms(kern, reps)
+        k2 = clock.median_ms(kern, reps)
+        p2 = clock.median_ms(plain, preps)
+        b = _bound(c, n, 2, "rayleigh", 32, name)
+        ms, plain_ms = min(k1, k2), min(p1, p2)
+        _log(f"  {name}: kernel {ms:.4f} ms (runs {k1:.4f}, {k2:.4f}), "
+             f"plain {plain_ms:.3f} ms; bound {b['bound_ms']:.4f} ms "
+             f"({b['bound_by']}: {b['bytes'] / 1e6:.2f} MB -> "
+             f"{b['bytes_ms']:.4f} ms, {b['ops'] / 1e9:.2f} G ops -> "
+             f"{b['ops_ms']:.4f} ms); library call: n/a")
+        rows.append({
+            "name": name, "route": "cuda", "source": K1_SOURCE,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+            "library_ms": None,
+        })
+    return rows
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--cpu", action="store_true",
+                        help="rehearse on the CPU at small sizes")
+    args = parser.parse_args(argv)
+    if not (SRC / "repro_torch" / "__init__.py").is_file():
+        print("chip_smoke.py: src/repro_torch not found beside this script; "
+              "run it from a checkout of the repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    import torch
+
+    if args.cpu:
+        device = torch.device("cpu")
+    elif not torch.cuda.is_available():
+        print("chip_smoke.py: no CUDA device (torch.cuda.is_available() is "
+              "false); use --cpu to rehearse", file=sys.stderr)
+        return 2
+    else:
+        from repro_torch import resolve_device
+
+        device = resolve_device()
+        torch.use_deterministic_algorithms(True)
+    small = device.type == "cpu"
+    t0 = time.perf_counter()
+    try:
+        smi = phase_device(torch, device)
+        phase_build(device)
+        phase_kernels(torch, device, small)
+        launches = phase_main_path(torch, device, small)
+        if device.type == "cuda":
+            phase_reference(torch, device)
+        rows = phase_times(torch, device, small, launches)
+    except PhaseError as e:
+        print(f"chip_smoke.py: FAILED: {e}", file=sys.stderr)
+        return 1
+    _log(f"== done in {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"kernels": rows}))
+    print(smi)
+    if device.type == "cuda":
+        kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind, "count": count}}))
+    else:
+        print(json.dumps({"ok": True, "device": {
+            "platform": "cpu", "kind": "cpu", "count": 0}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,77 @@
+"""The paper's FL simulation: FedSGD over a noisy wireless uplink (port).
+
+One round (paper Sec. II):
+  1. every client computes a single-step gradient on its local shard (4)
+  2. the stacked (M, D) gradients go through the batched uplink — M
+     independent fading channels, one K1 launch (or one K2 launch with
+     ``fused_aggregate=True``, which also aggregates)
+  3. the PS aggregates (5) and updates the global model (6)
+  4. airtime for the round = the TDMA sum of the clients' uplinks
+
+Counterpart of ``repro.fl.loop.run_fl``: a thin façade over
+:class:`~repro_torch.fl.engine.RoundEngine` with :class:`FedSGD`.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from repro_torch.core import latency as latency_lib
+from repro_torch.core import transport as transport_lib
+from repro_torch.fl import engine as engine_lib
+from repro_torch.fl.engine import FLResult
+
+__all__ = ["FLResult", "run_fl"]
+
+
+def run_fl(
+    cfg,
+    transport_cfg: transport_lib.TransportConfig,
+    client_x: np.ndarray,  # (M, n, 28, 28)
+    client_y: np.ndarray,  # (M, n)
+    test_x: np.ndarray,
+    test_y: np.ndarray,
+    n_rounds: int = 40,
+    batch_per_round: int = 32,
+    seed: int = 0,
+    eval_every: int = 2,
+    timings: latency_lib.PhyTimings | None = None,
+    scenario=None,
+    downlink=None,
+    compression=None,
+    fused_aggregate: bool = False,
+    ledger=None,
+    phase_timers=None,
+    sketches=None,
+    device=None,
+) -> FLResult:
+    """FedSGD over the simulated wireless uplink (paper Sec. II eq. (4)-(6)).
+
+    Args mirror the reference's ``run_fl``:
+      cfg: CNN model/optimizer config (``configs.mnist_cnn``).
+      transport_cfg: uplink transport (``perfect``, or ``naive``/``approx``
+        with ``use_kernel=True``).
+      client_x / client_y: stacked per-client shards, ``(M, n, ...)``.
+      test_x / test_y: held-out eval set (accuracy every ``eval_every``).
+      n_rounds / batch_per_round / seed: round count, per-round minibatch
+        size, and the seed driving params/keys/batch sampling.
+      timings: PHY timing model for airtime pricing.
+      fused_aggregate: fold the PS aggregation into the uplink (K2).
+      device: where to run; ``None`` is the GPU.
+      scenario / downlink / compression / ledger / phase_timers /
+        sketches: not ported yet; anything but ``None`` raises
+        ``NotImplementedError`` naming the ROADMAP item. The reference's
+        ``adaptive_dispatch`` only shapes ``scenario=`` rounds and comes
+        with them.
+
+    Returns:
+      :class:`~repro_torch.fl.engine.FLResult`.
+    """
+    algo = engine_lib.FedSGD(cfg, batch_per_round=batch_per_round)
+    return engine_lib.RoundEngine(
+        algo, transport_cfg, client_x, client_y, test_x, test_y,
+        n_rounds=n_rounds, seed=seed, eval_every=eval_every, timings=timings,
+        scenario=scenario, downlink=downlink, compression=compression,
+        fused_aggregate=fused_aggregate, ledger=ledger,
+        phase_timers=phase_timers, sketches=sketches, device=device,
+    ).run()

@@ -23,6 +23,7 @@ import pytest
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running end-to-end test")
+    config.addinivalue_line("markers", "cuda: needs a CUDA device (skips without one)")
 
 
 @pytest.fixture(scope="session")

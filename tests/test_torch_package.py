@@ -1,0 +1,207 @@
+"""Package rules of the PyTorch/CUDA port.
+
+* No module of ``src/repro_torch/``, not ``chip_smoke.py`` and not the
+  card-only ``tests/test_torch_cuda.py`` imports ``jax`` or ``repro`` (an
+  AST scan): all three run on a GPU machine without JAX.
+* Entry points run on the GPU unless asked for the CPU: without a GPU
+  they raise, with ``device="cpu"`` they run.
+* Paths not ported yet raise ``NotImplementedError`` naming the ROADMAP
+  item.
+"""
+
+import ast
+import pathlib
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch import resolve_device  # noqa: E402
+from repro_torch.configs.mnist_cnn import config  # noqa: E402
+from repro_torch.core import channel as TCH  # noqa: E402
+from repro_torch.core import prng as P  # noqa: E402
+from repro_torch.core import transport as TT  # noqa: E402
+from repro_torch.fl import engine as TE  # noqa: E402
+from repro_torch.fl.loop import run_fl  # noqa: E402
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py"]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "attr", getattr(node.func, "id", ""))
+              in ("import_module", "__import__")
+              and node.args and isinstance(node.args[0], ast.Constant)):
+            yield str(node.args[0].value).split(".")[0]
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_jax_or_reference(path):
+    assert path.exists()
+    bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_port_covers_its_modules():
+    names = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
+             for p in PORT_FILES[:-2]}
+    for mod in ("core/prng.py", "core/transport.py", "kernels/ref.py",
+                "kernels/approx_channel.py", "kernels/ops.py",
+                "fl/engine.py", "fl/loop.py", "convert.py"):
+        assert mod in names
+    assert (ROOT / "src/repro_torch/kernels/csrc/approx_channel.cu").exists()
+
+
+def _world():
+    rng = np.random.default_rng(0)
+    cx = rng.uniform(0, 1, (2, 8, 28, 28)).astype(np.float32)
+    cy = rng.integers(0, 10, (2, 8)).astype(np.int32)
+    return cx, cy, cx[0], cy[0]
+
+
+def _approx():
+    return TT.TransportConfig(mode="approx", use_kernel=True,
+                              channel=TCH.ChannelConfig(snr_db=10.0))
+
+
+def test_entry_points_need_a_gpu_unless_asked(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x = torch.zeros((2, 1024))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TT.transmit_batch(x, P.PRNGKey(0), _approx())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TT.transmit_flat(x[0], P.PRNGKey(0), _approx())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TT.transmit_batch_aggregate(x, P.PRNGKey(0), _approx(),
+                                    torch.full((2,), 0.5))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_fl(config(), _approx(), *_world(), n_rounds=1, batch_per_round=4)
+    out, _ = TT.transmit_batch(x, P.PRNGKey(0), _approx(), device="cpu")
+    assert out.device.type == "cpu"
+    res = run_fl(config(), _approx(), *_world(), n_rounds=1,
+                 batch_per_round=4, device="cpu")
+    assert np.isfinite(res.final_accuracy)
+
+
+def test_kernel_wrappers_reject_other_devices():
+    from repro_torch.kernels import approx_channel as ac
+
+    x = torch.zeros((2, 1024), device="meta")
+    s = torch.zeros((2,), dtype=torch.int64, device="meta")
+    f = torch.zeros((2,), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        ac.approx_channel_batch_kernel(x, s, f, f)
+
+
+@pytest.mark.parametrize("mode,kernel,match", [
+    ("approx", False, "Layered PHY"),
+    ("naive", False, "Layered PHY"),
+    ("ecrt", False, "ECRT"),
+    ("ecrt", True, "ECRT"),
+])
+def test_unported_modes_raise(mode, kernel, match):
+    cfg = TT.TransportConfig(mode=mode, use_kernel=kernel)
+    x = torch.zeros((2, 64))
+    for call in (lambda: TT.transmit_batch(x, P.PRNGKey(0), cfg, device="cpu"),
+                 lambda: TT.transmit_flat(x[0], P.PRNGKey(0), cfg,
+                                          device="cpu"),
+                 lambda: TT.transmit_batch_aggregate(
+                     x, P.PRNGKey(0), cfg, torch.full((2,), 0.5),
+                     device="cpu"),
+                 lambda: run_fl(config(), cfg, *_world(), n_rounds=1,
+                                device="cpu")):
+        with pytest.raises(NotImplementedError, match=match):
+            call()
+
+
+@pytest.mark.parametrize("arg", ["scenario", "downlink", "compression",
+                                 "ledger", "phase_timers", "sketches"])
+def test_unported_engine_arguments_raise(arg):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        run_fl(config(), _approx(), *_world(), n_rounds=1, device="cpu",
+               **{arg: object()})
+
+
+def test_perfect_mode_runs_without_kernels():
+    res = run_fl(config(), TT.TransportConfig(mode="perfect"), *_world(),
+                 n_rounds=2, batch_per_round=4, eval_every=1, device="cpu")
+    assert res.rounds == [0, 1]
+    # adaptive_dispatch comes with scenario=: until then it is no argument.
+    with pytest.raises(TypeError, match="adaptive_dispatch"):
+        TE.RoundEngine(TE.FedSGD(config()), TT.TransportConfig(mode="perfect"),
+                       *_world(), n_rounds=1, adaptive_dispatch="bucketed",
+                       device="cpu")
+
+
+def test_uplink_parts_lie_within_the_uplink():
+    res = run_fl(config(), _approx(), *_world(), n_rounds=2,
+                 batch_per_round=4, eval_every=1, device="cpu")
+    for ph in res.phase_s:
+        assert ph["uplink_keys"] > 0 and ph["uplink_kernel"] > 0
+        assert ph["uplink_keys"] + ph["uplink_kernel"] <= ph["uplink"]
+
+
+def test_spans_time_only_inside_a_collecting_scope():
+    from repro_torch.obs import spans
+
+    with spans.span("keys"):
+        pass  # no scope: nothing recorded, nothing raised
+    with spans.collect("cpu") as seconds:
+        for _ in range(2):
+            with spans.span("keys"):
+                pass
+        with spans.span("kernel"):
+            pass
+    assert set(seconds) == {"keys", "kernel"}
+    assert all(v >= 0 for v in seconds.values())
+    with spans.span("keys"):
+        pass
+    assert set(seconds) == {"keys", "kernel"}
+
+
+_FAKE_NVCC = """#!/bin/sh
+# Stands in for nvcc: writes the -o target, prints ptxas-like lines.
+out=""
+while [ $# -gt 0 ]; do
+  if [ "$1" = "-o" ]; then out="$2"; shift; fi
+  shift
+done
+echo "fake library" > "$out"
+echo "ptxas info    : Compiling entry function 'k1_approx_channel_batch'" >&2
+echo "ptxas info    : Used 32 registers" >&2
+"""
+
+
+def test_reused_build_reports_its_compiler_output(tmp_path, monkeypatch):
+    from repro_torch.kernels import build
+
+    toolkit = tmp_path / "cuda"
+    (toolkit / "bin").mkdir(parents=True)
+    nvcc = toolkit / "bin" / "nvcc"
+    nvcc.write_text(_FAKE_NVCC)
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(toolkit))
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    lib, log, seconds = build.build.__wrapped__("approx_channel")
+    assert lib.exists() and seconds > 0
+    assert "Compiling entry function" in log
+    again = build.build.__wrapped__("approx_channel")
+    assert again == (lib, log, 0.0)
+    # A library without its log (an older build) is compiled again.
+    lib.with_suffix(".log").unlink()
+    _, log3, seconds3 = build.build.__wrapped__("approx_channel")
+    assert log3 == log and seconds3 > 0
