@@ -12,10 +12,15 @@ against their plain PyTorch versions. Phases, each of which fails the run
 1. Device: name, count, and ``nvidia-smi``'s name and power limit.
 2. Build: the kernels from ``src/repro_torch/kernels/csrc`` with nvcc
    (time, and ``-Xptxas -v``'s registers and spills; a build reused from
-   an earlier run in the same checkout reports the log saved with it).
+   an earlier run in the same checkout reports the log saved with it),
+   and the SASS of one symbol of the main-path instances (k=2, rayleigh,
+   f32 wire) counted by class with ``cuobjdump`` (``sass_symbol_loop``).
 3. K1 against its plain version on the card: k in {2,4,8} x fading in
    {rayleigh, awgn, block_rayleigh} x wire in {f32, bf16} at C=8,
-   N=16,384, masked ``num_active`` in {1,3,5}, and naive mode. Identical
+   N=16,384; C=37 (across the kernels' client chunk of 32, no multiple
+   of their 8 client slots) x k in {2,8} x {rayleigh, block_rayleigh} x
+   both wires; masked
+   ``num_active`` in {1,3,5}; and naive mode. Identical
    bits and errors at noise power 0. With noise identical is expected;
    any word that differs must trace to a symbol whose demod pre-round
    value lies within 1e-4 of a half-integer (``EDGE``).
@@ -30,9 +35,10 @@ against their plain PyTorch versions. Phases, each of which fails the run
    uplink (with its key-schedule and kernel parts), apply and eval. A
    4-client world run on the GPU and on the CPU checks the result against
    the CPU plain path.
-6. Times at the main-path shape (C=100, N=22,528, QPSK, f32): kernel and
-   plain version with CUDA events (median of single launches after a
-   warm-up), each kernel's bound from bytes and operations, and the
+6. Times at the main-path shape (C=100, N=22,528, QPSK, f32; K0 at C=1):
+   kernel and plain version with CUDA events (median of single launches
+   after a warm-up), each kernel's bound from bytes and operations, the
+   floor its SASS implies at the card's issue rate, and the
    per-round key schedule (client keys + kernel seeds) on the host and on
    the card.
 7. The result: a JSON line of the kernels, ``nvidia-smi``'s line, and as
@@ -63,6 +69,7 @@ ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
 EDGE = 1e-4  # demod pre-round proximity to a half-integer that may flip
 K1_SOURCE = "src/repro_torch/kernels/csrc/approx_channel.cu"
+K0_REPLACES = "src/repro/kernels/approx_channel.py:52"
 K1_REPLACES = "src/repro/kernels/approx_channel.py:405"
 K2_REPLACES = "src/repro/kernels/approx_channel.py:294"
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s and float32
@@ -181,14 +188,103 @@ def _bound(c: int, n: int, k: int, fading: str, word_bits: int,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+# SASS classes of ``sass_symbol_loop``, matched on the opcode in order.
+SASS_CLASSES = (
+    ("conversion/MUFU/popc", r"(I2F|F2I|F2F|FRND|MUFU|POPC|FLO)"),
+    ("float32", r"(FADD|FMUL|FFMA|FMNMX|FSEL|FSETP|FCHK|FSET)"),
+    ("float64", r"D"),
+    ("memory", r"(LD|ST|ATOM|RED|SHFL)"),
+    ("control", r"(BRA|BSSY|BSYNC|CALL|RET|EXIT|BAR|NOP|WARPSYNC|YIELD)"),
+    ("uniform", r"U"),
+    ("integer", r"(IMAD|IADD|LOP|SHF|LEA|ISETP|SEL|MOV|VIADD|PRMT|IABS|"
+                r"IMNMX|BMSK|SGXT|CS2R|S2R|P2R|R2P|PLOP|VIMNMX|IMUL|VOTE)"),
+)
+
+
+def sass_symbol_loop(lib, kernel: str):
+    """Instructions of one symbol of the main-path instance of ``kernel``
+    ("k1" or "k2"; k=2, rayleigh, f32 wire) in the built library ``lib``,
+    by class: ``{"total": n, class: n, ...}``, or None without cuobjdump.
+
+    The symbol loop is the innermost loop that holds a MUFU (the sqrt and
+    divide seeds). Its hot path leaves out every forward branch over at
+    most 150 instructions that hold a call, a local-memory access or a
+    global load: the slow paths of sqrt and divide and the large-argument
+    reduction of sincos, which no argument of this chain reaches.
+    """
+    import collections
+    import re
+    import shutil
+
+    from repro_torch.kernels import build
+
+    cuobjdump = shutil.which("cuobjdump")
+    if cuobjdump is None:
+        try:
+            cand = pathlib.Path(build.nvcc_path()).parent / "cuobjdump"
+        except RuntimeError:
+            return None
+        cuobjdump = str(cand) if cand.is_file() else None
+    if cuobjdump is None:
+        return None
+    text = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    tag = {"k1": "k1_approx_channel_batch", "k2": "k2_approx_channel_aggregate"}
+    func = next(f for f in re.split(r"\n(?=\s*Function : )", text)
+                if tag[kernel] + "ILi2ELi0ELi32E" in f.lstrip().split("\n", 1)[0])
+    ins = [(int(a, 16), t.strip()) for a, t in re.findall(
+        r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", func)]
+
+    def opcode(t):
+        return re.sub(r"^@!?U?P\w+\s+", "", t).split()[0]
+
+    def target(t):
+        m = re.search(r"\bBRA\s+.*?(0x[0-9a-f]+)", t)
+        return int(m.group(1), 16) if m else None
+
+    where = {a: k for k, (a, _) in enumerate(ins)}
+    loops = [(where[target(t)], k) for k, (a, t) in enumerate(ins)
+             if target(t) is not None and target(t) < a]
+    lo, hi = min((lh for lh in loops if any(
+        opcode(t).startswith("MUFU") for _, t in ins[lh[0]:lh[1] + 1])),
+        key=lambda lh: lh[1] - lh[0])
+    body = ins[lo:hi + 1]
+    cold = set()
+    for k, (a, t) in enumerate(body):
+        tgt = target(t)
+        if not t.startswith("@") or tgt is None or tgt <= a:
+            continue
+        skipped = [j for j in range(k + 1, len(body)) if body[j][0] < tgt]
+        if len(skipped) <= 150 and any(opcode(body[j][1]).startswith(
+                ("CALL", "STL", "LDL", "LDG")) for j in skipped):
+            cold.update(skipped)
+    counts = collections.Counter()
+    for j, (_, t) in enumerate(body):
+        if j not in cold:
+            op = opcode(t)
+            counts[next((name for name, pat in SASS_CLASSES
+                         if re.match(pat, op)), "other")] += 1
+    order = [name for name, _ in SASS_CLASSES] + ["other"]
+    return {"total": sum(counts.values()),
+            **{name: counts[name] for name in order if counts[name]}}
+
+
+def _issue_floor_ms(symbols: int, sass: dict, sms: int, mhz: float) -> float:
+    """Least time for ``symbols`` symbols at ``sass["total"]`` instructions
+    each when every scheduler issues one warp instruction per clock (4 per
+    SM, 32 lanes each) at the card's top SM clock."""
+    return symbols * sass["total"] / (sms * 4 * 32 * mhz * 1e6) * 1e3
+
+
 # ------------------------------------------------------------------- phases
 
 
-def phase_device(torch, device) -> str:
+def phase_device(torch, device) -> tuple:
+    """``(nvidia-smi's name and power limit, top SM clock in MHz)``."""
     _log("== phase 1: device")
     if device.type == "cpu":
         _log("device: cpu (rehearsal; no GPU numbers are produced)")
-        return "cpu (rehearsal)"
+        return "cpu (rehearsal)", None
     _log(f"device: {torch.cuda.get_device_name(0)} x "
          f"{torch.cuda.device_count()}, torch {torch.__version__}, "
          f"CUDA {torch.version.cuda}")
@@ -199,15 +295,23 @@ def phase_device(torch, device) -> str:
     _check(proc.returncode == 0, f"nvidia-smi failed: {proc.stderr}")
     smi = proc.stdout.strip().splitlines()[0]
     _log(f"nvidia-smi: {smi}")
-    return smi
+    proc = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60)
+    _check(proc.returncode == 0, f"nvidia-smi failed: {proc.stderr}")
+    mhz = float(proc.stdout.strip().splitlines()[0])
+    _log(f"top SM clock: {mhz:.0f} MHz")
+    return smi, mhz
 
 
-def phase_build(device) -> None:
+def phase_build(device) -> dict:
+    """Builds the kernels; returns ``sass_symbol_loop`` of K1 and K2."""
     _log("== phase 2: build")
     if device.type == "cpu":
         _log("build: skipped on the CPU (no nvcc; wrappers run the plain "
              "versions)")
-        return
+        return {}
     from repro_torch.kernels import build
 
     lib, log, seconds = build.build("approx_channel")
@@ -234,6 +338,16 @@ def phase_build(device) -> None:
              f"{min(st['regs'])}-{max(st['regs'])}, spill stores "
              f"{st['spill']} bytes")
     _check(set(summary) == {"k1", "k2"}, "ptxas reported no kernels")
+    sass = {}
+    for kernel in ("k1", "k2"):
+        counts = sass_symbol_loop(lib, kernel)
+        if counts is None:
+            _log("  SASS: not counted (no cuobjdump)")
+            break
+        sass[kernel] = counts
+        _log(f"  SASS {kernel} (k=2, rayleigh, f32), one symbol, hot path: "
+             + ", ".join(f"{k} {v}" for k, v in counts.items()))
+    return sass
 
 
 def _sweep_inputs(torch, device, c, n, word_bits, seed):
@@ -338,6 +452,24 @@ def phase_kernels(torch, device, small: bool) -> None:
                 _log(f"  wire={word_bits} k={k} {fading:14s} K1 words "
                      f"differing {nd} (edge-bound), max|err| K1 {e1:.3g} "
                      f"K2 {e2:.3g}")
+    # 37 clients: one full chunk of 32 and a ragged one, no multiple of the
+    # 8 client slots; weights drawn in [0.2, 2], so the order shows.
+    for word_bits in (32, 16):
+        mask = 0xBFFF if word_bits == 16 else 0xBFFFFFFF
+        for k in (2, 8):
+            for fading in ("rayleigh", "block_rayleigh"):
+                x, seeds, npow, gains, w = _sweep_inputs(
+                    torch, device, 37, n, word_bits, seed=k * 37 + word_bits)
+                kw = dict(bits_per_symbol=k, fading=fading,
+                          clamp_mask=mask, word_bits=word_bits)
+                nd, e1, xk, edges = _compare_k1(torch, x, seeds, npow, gains,
+                                                kw)
+                e2 = _compare_k2(torch, x, seeds, npow, gains, w, kw, xk,
+                                 edges)
+                total_diff += nd
+                _log(f"  C=37 wire={word_bits} k={k} {fading:14s} K1 words "
+                     f"differing {nd} (edge-bound), max|err| K1 {e1:.3g} "
+                     f"K2 {e2:.3g}")
     x, seeds, npow, gains, w = _sweep_inputs(torch, device, c, n, 32, 99)
     kw = dict(bits_per_symbol=2, fading="rayleigh", clamp_mask=0xBFFFFFFF,
               word_bits=32)
@@ -395,9 +527,11 @@ def phase_main_path(torch, device, small: bool) -> dict:
                      fused_aggregate=fused, device=device)
         counts = ac.launch_counts()
         launches[kernel] = counts[kernel]
+        launches["k0"] = launches.get("k0", 0) + counts["k0"]
         want = rounds if device.type == "cuda" else 0
         other = "k2" if kernel == "k1" else "k1"
-        _check(counts[kernel] == want and counts[other] == 0,
+        _check(counts[kernel] == want and counts[other] == 0
+               and counts["k0"] == 0,
                f"{'fused' if fused else 'layered'} path launched {counts}, "
                f"expected {want} {kernel} launches")
         _check(all(math.isfinite(a) for a in res.accuracy),
@@ -448,7 +582,8 @@ def phase_reference(torch, device) -> None:
         _log(f"  fused={fused}: GPU {a.accuracy} vs CPU {b.accuracy}")
 
 
-def phase_times(torch, device, small: bool, launches: dict) -> list:
+def phase_times(torch, device, small: bool, launches: dict, sass: dict,
+                mhz) -> list:
     from repro_torch.core import aggregation, prng, transport
     from repro_torch.kernels import approx_channel as ac
     from repro_torch.kernels import ops, ref
@@ -478,7 +613,22 @@ def phase_times(torch, device, small: bool, launches: dict) -> list:
             transport.client_keys(key, c)).to(device), reps)
         _log(f"  key schedule (client_keys + kernel seeds, {c} clients) on "
              f"{torch.device(where).type}: {ms:.3f} ms (median of {reps})")
+    # K0: the first client's row alone, against the plain version.
+    x0, s0, p0, g0 = x[0].contiguous(), seeds[0], npow[0], gains[0]
+    xk0, _ = ac.approx_channel_kernel(x0, s0, p0, g0, **kw)
+    xp0, _, edges0 = ref.approx_channel_batch_ref(
+        x[:1], seeds[:1], npow[:1], gains[:1], with_edges=True, **kw)
+    diff0 = _bits(torch, xk0) != _bits(torch, xp0[0])
+    _check(bool((edges0[0][diff0] < EDGE).all()),
+           "K0 word differs away from a decision edge")
+    e0 = (xk0 - xp0[0]).abs()
+    e0 = float(e0[torch.isfinite(e0)].max())
+    _log(f"  K0 at C=1, N={n}: words differing {int(diff0.sum())}, "
+         f"max|err| {e0:.3g}")
     arms = {
+        "k0": (lambda: ac.approx_channel_kernel(x0, s0, p0, g0, **kw),
+               lambda: ref.ref_approx_channel(x0, s0, p0, g0, **kw), e0,
+               K0_REPLACES),
         "k1": (lambda: ac.approx_channel_batch_kernel(x, seeds, npow, gains,
                                                        **kw),
                lambda: ref.approx_channel_batch_ref(x, seeds, npow, gains,
@@ -495,13 +645,24 @@ def phase_times(torch, device, small: bool, launches: dict) -> list:
         k1 = clock.median_ms(kern, reps)
         k2 = clock.median_ms(kern, reps)
         p2 = clock.median_ms(plain, preps)
-        b = _bound(c, n, 2, "rayleigh", 32, name)
+        b = (_bound(1, n, 2, "rayleigh", 32, "k1") if name == "k0"
+             else _bound(c, n, 2, "rayleigh", 32, name))
         ms, plain_ms = min(k1, k2), min(p1, p2)
         _log(f"  {name}: kernel {ms:.4f} ms (runs {k1:.4f}, {k2:.4f}), "
              f"plain {plain_ms:.3f} ms; bound {b['bound_ms']:.4f} ms "
              f"({b['bound_by']}: {b['bytes'] / 1e6:.2f} MB -> "
              f"{b['bytes_ms']:.4f} ms, {b['ops'] / 1e9:.2f} G ops -> "
              f"{b['ops_ms']:.4f} ms); library call: n/a")
+        # K0 runs K1's instance, one client
+        counts = sass.get("k1" if name == "k0" else name)
+        if counts and mhz:
+            symbols = (1 if name == "k0" else c) * n * 16
+            sms = torch.cuda.get_device_properties(device).multi_processor_count
+            floor = _issue_floor_ms(symbols, counts, sms, mhz)
+            _log(f"  {name}: issue-rate floor {floor:.4f} ms ({counts['total']}"
+                 f" instructions x {symbols / 1e6:.2f} M symbols over {sms} "
+                 f"SMs x 128 lanes at {mhz:.0f} MHz); kernel at "
+                 f"{floor / ms:.0%} of it")
         rows.append({
             "name": name, "route": "cuda", "source": K1_SOURCE,
             "replaces": replaces, "launches": launches[name],
@@ -538,13 +699,13 @@ def main(argv=None) -> int:
     small = device.type == "cpu"
     t0 = time.perf_counter()
     try:
-        smi = phase_device(torch, device)
-        phase_build(device)
+        smi, mhz = phase_device(torch, device)
+        sass = phase_build(device)
         phase_kernels(torch, device, small)
         launches = phase_main_path(torch, device, small)
         if device.type == "cuda":
             phase_reference(torch, device)
-        rows = phase_times(torch, device, small, launches)
+        rows = phase_times(torch, device, small, launches, sass, mhz)
     except PhaseError as e:
         print(f"chip_smoke.py: FAILED: {e}", file=sys.stderr)
         return 1

@@ -240,6 +240,7 @@ approx_channel_batch_aggregate_kernel.launches = 0
 def approx_channel_kernel(x, seed, noise_power, large_scale_gain, **kw):
     """K0: one client's ``(N,)`` payload, as a C=1 call into K1.
 
+    A CUDA call counts one launch here and one in K1's counter.
     Returns ``(x_hat (N,), bit_errors () int32)``.
     """
     dev = x.device
@@ -251,16 +252,24 @@ def approx_channel_kernel(x, seed, noise_power, large_scale_gain, **kw):
         torch.as_tensor(large_scale_gain, dtype=torch.float32,
                         device=dev).reshape(1),
         **kw)
+    if dev.type == "cuda":
+        approx_channel_kernel.launches += 1
     return x_hat[0], errs[0]
 
 
+approx_channel_kernel.launches = 0
+
+
 def launch_counts() -> dict:
-    """Launches of each kernel since the last reset: ``{"k1": n, "k2": n}``."""
-    return {"k1": approx_channel_batch_kernel.launches,
+    """Launches of each kernel since the last reset:
+    ``{"k0": n, "k1": n, "k2": n}`` (a K0 launch is also a K1 launch)."""
+    return {"k0": approx_channel_kernel.launches,
+            "k1": approx_channel_batch_kernel.launches,
             "k2": approx_channel_batch_aggregate_kernel.launches}
 
 
 def reset_launch_counts() -> None:
     """Set every kernel's launch counter to 0."""
+    approx_channel_kernel.launches = 0
     approx_channel_batch_kernel.launches = 0
     approx_channel_batch_aggregate_kernel.launches = 0

@@ -13,30 +13,61 @@
 //
 // What bounds them on an H100 SXM. At the main-path shape (C = 100
 // clients, N = 22,528 words, QPSK, f32 wire) K1 reads 9.0 MB and writes
-// 9.0 MB: 5.4 us at 3.35 TB/s. Every symbol (16 per word at QPSK) costs
-// four hash evaluations plus two logf, two sqrtf, two cosf, two sinf and
-// two divides: 66 float and 119 integer operations when each libdevice
-// call counts as one (chip_smoke.py::_k1_ops_per_symbol), 6.7e9 in all,
-// 0.10 ms even at the 67 TFLOP/s float32 peak. The arithmetic, not the
-// bytes, sets the bound. K2 does the same arithmetic and moves half the
-// bytes.
+// 9.0 MB: 5.4 us at 3.35 TB/s. It runs 36.0 M symbols through the chain:
+// four hashes, two logf, two sqrtf, a sine and a cosine of two angles and
+// two divides each; 185 operations a symbol with each libdevice call
+// counted as one, 0.10 ms at the 67 TFLOP/s float32 peak. But each call
+// is tens of instructions, so the card is bound by its issue rate, one
+// warp instruction per clock per scheduler: the main-path instance ran
+// 346 instructions a symbol in the SASS of the earlier design (one thread
+// per word and client, every hash whole; 0.37 ms at 1,980 MHz) and runs
+// 267 in this one (0.29 ms); both kernels reach about half to 3/5 of that
+// rate. K2 does the same arithmetic and moves half the bytes. Cheaper
+// math is not an option (--use_fast_math, __logf, __sinf, fma
+// contraction: each changes bits), so the design removes instructions
+// that leave the bits alone, and keeps the card full.
 //
-// Design. One thread owns one word and loops over its S = word_bits / k
-// symbols; a symbol's global index comes from the interleave formula
-// base + s * block_words + w, so nothing is transposed. block_words is
-// part of the wire format (it fixes the interleave and the RNG indices),
-// not the CUDA block size. K1 reduces per-client error counts in a warp
-// (every block lies in one client row), then with an integer atomicAdd:
-// exact in any order. K2 keeps the accumulator in a register and loops
-// over clients c = 0..C-1 in order, so its sum has the plain version's
-// order exactly.
+// Fewer instructions, the same bits:
+// - hash_u32(seed, idx, stream) = fmix32(seed ^ fmix32(idx * phi +
+//   stream)). The inner fmix32 does not depend on the client, so a block
+//   computes the four inner halves (noise, noise ^ phase, fade, fade ^
+//   phase) of every symbol of its 32 words once, into shared memory
+//   (hs, 8 KB), and every client reads them with two 8-byte loads: 8
+//   fmix32 per symbol-client become 4, plus 4 per block and symbol.
+// - level_value and axis_level build the Gray and demod levels with exact
+//   bit arithmetic in place of int <-> float conversions and rintf.
+// - one sincosf replaces cosf and sinf of the same angle (nvcc already
+//   shared their fast-path reduction, not the large-argument one).
+//
+// Layout. Both kernels run blocks of 32 words (threadIdx.x) x 8 client
+// slots (threadIdx.y): a warp is one slot, so it lies in one client row
+// at a time, and each client's error count is warp-reduced, then added
+// with an integer atomicAdd (exact in any order). Slot g takes clients
+// c0 + m * 8 + g, m = 0..3, of a chunk of 32, one after another.
+// - K1: blockIdx.y picks one chunk (grid 704 x ceil(C / 32)).
+// - K2: the earlier design gave each thread one word and all C clients
+//   in turn: 352 blocks of 64 threads, 8% of the card's 270,336 thread
+//   slots, too few warps to hide the chain's latency. Now a
+//   block walks all active clients chunk by chunk (grid 704). Each slot
+//   writes its clients' received floats into a shared tile xs[32][32];
+//   after a barrier, slot 0 adds the chunk into its register accumulator,
+//   acc = acc + w[c] * xs[c - c0] for c = c0, c0 + 1, ... in order, and a
+//   second barrier guards the tile. So the sum runs c = 0 .. active - 1
+//   in order, one multiply and one add each, exactly as the plain version.
+// __launch_bounds__(256, 6) caps both at 40 registers. Measured (-Xptxas
+// -v, main-path instances): K1 34, K2 40 registers, no spills; 8 KB
+// (K1) and 12 KB (K2) of shared memory. 40 registers x 256 threads is
+// 10,240 of the SM's 65,536, so 6 blocks (1,536 threads, 75% of the SM's
+// 2,048 slots) are resident per SM, and K2's 704 blocks (180,224 threads,
+// 67% of the card's slots) are all resident at once. They spread 6 or 5
+// to an SM, so K2 takes about 6 / 5.33 of the time its work needs.
 //
 // Arithmetic matches the plain PyTorch version (kernels/ref.py) bit for
 // bit: every multiply, add and divide is an explicit round-to-nearest
 // intrinsic (__fmul_rn, __fadd_rn, __fdiv_rn), which the compiler never
-// fuses into an fma; sqrt is __fsqrt_rn; logf, cosf, sinf are the
-// libdevice routines PyTorch's own CUDA elementwise ops call; rintf is
-// round half to even (jnp.round); hashes and symbol indices are uint32 so
+// fuses into an fma; sqrt is __fsqrt_rn; logf and sincosf are libdevice's
+// (PyTorch's cos and sin on the card are libdevice's cosf and sinf, which
+// compute what sincosf computes); hashes and symbol indices are uint32 so
 // they wrap as the reference's do. Never build with --use_fast_math.
 
 #include <cstdint>
@@ -44,11 +75,23 @@
 
 namespace {
 
+constexpr uint32_t kPhi = 0x9E3779B9u;
 constexpr uint32_t kStreamNoise = 0x9E3779B9u;
 constexpr uint32_t kStreamFade = 0x7FEB352Du;
 constexpr uint32_t kStreamPhase = 0x68E31DA4u;
+constexpr float kSqrtHalf = 0x1.6a09e6p-1f;  // float32(sqrt(0.5))
 
 enum Fading { kRayleigh = 0, kAwgn = 1, kBlockRayleigh = 2 };
+
+// Both kernels: a block is kWords words x kSlots client slots; each slot
+// runs kPerSlot clients of a chunk of kChunk, one after another.
+constexpr int kWords = 32;   // threadIdx.x: one warp per slot
+constexpr int kSlots = 8;    // threadIdx.y
+constexpr int kPerSlot = 4;
+constexpr int kChunk = kSlots * kPerSlot;
+constexpr int kThreads = kWords * kSlots;
+constexpr int kMinBlocks = 6;     // per SM: caps registers at 40
+constexpr int kMaxSymbols = 16;   // symbols per word: 32 / k, k >= 2
 
 __device__ __forceinline__ uint32_t fmix32(uint32_t x) {
   x ^= x >> 16;
@@ -59,9 +102,28 @@ __device__ __forceinline__ uint32_t fmix32(uint32_t x) {
   return x;
 }
 
-__device__ __forceinline__ uint32_t hash_u32(uint32_t seed, uint32_t idx,
-                                             uint32_t stream) {
-  return fmix32(seed ^ fmix32(idx * 0x9E3779B9u + stream));
+// The seed-free inner halves of one symbol's four hashes:
+// fmix32(idx * phi + stream) for the noise and fading streams and their
+// phase companions. The fading half is unused (and not computed) for awgn.
+struct alignas(16) SymbolHash {
+  uint32_t noise, noise_phase, fade, fade_phase;
+};
+
+template <int FADING>
+__device__ __forceinline__ SymbolHash symbol_hash(uint32_t gidx,
+                                                  uint32_t fade_block) {
+  SymbolHash h;
+  const uint32_t ni = gidx * kPhi;
+  h.noise = fmix32(ni + kStreamNoise);
+  h.noise_phase = fmix32(ni + (kStreamNoise ^ kStreamPhase));
+  h.fade = h.fade_phase = 0;
+  if (FADING != kAwgn) {
+    const uint32_t fi =
+        (FADING == kBlockRayleigh ? gidx / fade_block : gidx) * kPhi;
+    h.fade = fmix32(fi + kStreamFade);
+    h.fade_phase = fmix32(fi + (kStreamFade ^ kStreamPhase));
+  }
+  return h;
 }
 
 // uint32 hash -> uniform float in (0, 1].
@@ -69,16 +131,19 @@ __device__ __forceinline__ float uniform01(uint32_t h) {
   return __fadd_rn(__fmul_rn(static_cast<float>(h >> 8), 0x1p-24f), 0x1p-25f);
 }
 
-// Two iid N(0, 1) floats via Box-Muller on counter-RNG uniforms.
-__device__ __forceinline__ void gauss_pair(uint32_t seed, uint32_t idx,
-                                           uint32_t stream, float& a,
+// Two iid N(0, 1) floats via Box-Muller on counter-RNG uniforms; inner and
+// inner_phase are the seed-free halves of the two hashes.
+__device__ __forceinline__ void gauss_pair(uint32_t seed, uint32_t inner,
+                                           uint32_t inner_phase, float& a,
                                            float& b) {
-  const float u1 = uniform01(hash_u32(seed, idx, stream));
-  const float u2 = uniform01(hash_u32(seed, idx, stream ^ kStreamPhase));
+  const float u1 = uniform01(fmix32(seed ^ inner));
+  const float u2 = uniform01(fmix32(seed ^ inner_phase));
   const float r = __fsqrt_rn(__fmul_rn(-2.0f, logf(u1)));
   const float ang = __fmul_rn(u2, 6.283185307179586f);  // float32(2*pi)
-  a = __fmul_rn(r, cosf(ang));
-  b = __fmul_rn(r, sinf(ang));
+  float sn, cs;
+  sincosf(ang, &sn, &cs);
+  a = __fmul_rn(r, cs);
+  b = __fmul_rn(r, sn);
 }
 
 __device__ __forceinline__ uint32_t gray_decode(uint32_t g) {
@@ -88,87 +153,96 @@ __device__ __forceinline__ uint32_t gray_decode(uint32_t g) {
   return g;
 }
 
+// Constellation coordinate (2 * lvl - (L - 1)) * amp. 2^23 + 2 * lvl is
+// built from its bits and (2^23 + L - 1) subtracted, both exact, so this
+// equals the plain version's float(2 * lvl) - (L - 1) without a
+// conversion.
+template <int L>
+__device__ __forceinline__ float level_value(uint32_t lvl, float amp) {
+  const float t = __uint_as_float(0x4B000000u | (lvl << 1));
+  return __fmul_rn(__fsub_rn(t, 8388608.0f + static_cast<float>(L - 1)), amp);
+}
+
 // Closed-form ML demod of one axis: round((y * inv + (L - 1)) * 0.5),
-// clipped to [0, L - 1].
+// clipped to [0, L - 1]. Clipping first changes nothing (0 and L - 1 are
+// integers and rounding is monotone; a NaN clips to 0 either way), and a
+// value in [0, L - 1] plus 1.5 * 2^23 rounds half to even onto an integer
+// whose low mantissa bits are the level: rintf and the float -> int
+// conversion without the conversion unit.
 template <int L>
 __device__ __forceinline__ uint32_t axis_level(float y, float inv) {
   const float v =
       __fmul_rn(__fadd_rn(__fmul_rn(y, inv), static_cast<float>(L - 1)), 0.5f);
-  const float lvl =
-      fminf(fmaxf(rintf(v), 0.0f), static_cast<float>(L - 1));
-  return static_cast<uint32_t>(lvl);
+  const float c = fminf(fmaxf(v, 0.0f), static_cast<float>(L - 1));
+  return __float_as_uint(__fadd_rn(c, 12582912.0f)) & (L - 1);
 }
 
-// One word through the channel: the received word, before the clamp.
-template <int K, int FADING, int WB>
-__device__ __forceinline__ uint32_t channel_word(
-    uint32_t u, uint32_t seed, uint32_t base, uint32_t w, uint32_t bw,
-    uint32_t fade_block, float nscale, float sg, float amp, float inv) {
+// One symbol of one client through the channel: its k received bits.
+template <int K, int FADING>
+__device__ __forceinline__ uint32_t channel_symbol(uint32_t sym, uint32_t seed,
+                                                   const SymbolHash& h,
+                                                   float nscale, float sg,
+                                                   float amp, float inv) {
   constexpr int P = K / 2;
   constexpr int L = 1 << P;
-  constexpr int S = WB / K;
-  const float hs = __fsqrt_rn(0.5f);
-  uint32_t u_hat = 0;
-  // Not unrolled: each symbol inlines four libdevice calls with their slow
-  // paths, and 18 instances of each kernel would compile for minutes.
-#pragma unroll 1
-  for (int s = 0; s < S; ++s) {
-    const int shift = WB - K * (s + 1);
-    const uint32_t sym = (u >> shift) & ((1u << K) - 1u);
-    uint32_t gi = 0, gq = 0;
+  uint32_t gi = 0, gq = 0;
 #pragma unroll
-    for (int j = 0; j < P; ++j) {
-      gi |= ((sym >> (K - 1 - 2 * j)) & 1u) << (P - 1 - j);
-      gq |= ((sym >> (K - 2 - 2 * j)) & 1u) << (P - 1 - j);
-    }
-    const float s_re = __fmul_rn(
-        __fadd_rn(__fmul_rn(2.0f, static_cast<float>(gray_decode(gi))),
-                  -static_cast<float>(L - 1)),
-        amp);
-    const float s_im = __fmul_rn(
-        __fadd_rn(__fmul_rn(2.0f, static_cast<float>(gray_decode(gq))),
-                  -static_cast<float>(L - 1)),
-        amp);
-
-    const uint32_t gidx = base + static_cast<uint32_t>(s) * bw + w;
-    float n_re, n_im;
-    gauss_pair(seed, gidx, kStreamNoise, n_re, n_im);
-    n_re = __fmul_rn(n_re, nscale);
-    n_im = __fmul_rn(n_im, nscale);
-    float c_re, c_im;
-    if (FADING == kAwgn) {
-      c_re = __fmul_rn(sg, 1.0f);
-      c_im = 0.0f;
-    } else {
-      const uint32_t fidx = FADING == kBlockRayleigh ? gidx / fade_block : gidx;
-      float h_re, h_im;
-      gauss_pair(seed, fidx, kStreamFade, h_re, h_im);
-      c_re = __fmul_rn(__fmul_rn(sg, h_re), hs);
-      c_im = __fmul_rn(__fmul_rn(sg, h_im), hs);
-    }
-    const float c2 =
-        fmaxf(__fadd_rn(__fmul_rn(c_re, c_re), __fmul_rn(c_im, c_im)), 1e-20f);
-    // n / c = n * conj(c) / |c|^2
-    const float y_re = __fadd_rn(
-        s_re,
-        __fdiv_rn(__fadd_rn(__fmul_rn(n_re, c_re), __fmul_rn(n_im, c_im)), c2));
-    const float y_im = __fadd_rn(
-        s_im,
-        __fdiv_rn(__fsub_rn(__fmul_rn(n_im, c_re), __fmul_rn(n_re, c_im)), c2));
-
-    uint32_t gi_hat = axis_level<L>(y_re, inv);
-    uint32_t gq_hat = axis_level<L>(y_im, inv);
-    gi_hat ^= gi_hat >> 1;  // Gray encode
-    gq_hat ^= gq_hat >> 1;
-    uint32_t rx = 0;
-#pragma unroll
-    for (int j = 0; j < P; ++j) {
-      rx |= ((gi_hat >> (P - 1 - j)) & 1u) << (K - 1 - 2 * j);
-      rx |= ((gq_hat >> (P - 1 - j)) & 1u) << (K - 2 - 2 * j);
-    }
-    u_hat |= rx << shift;
+  for (int j = 0; j < P; ++j) {
+    gi |= ((sym >> (K - 1 - 2 * j)) & 1u) << (P - 1 - j);
+    gq |= ((sym >> (K - 2 - 2 * j)) & 1u) << (P - 1 - j);
   }
-  return u_hat;
+  const float s_re = level_value<L>(gray_decode(gi), amp);
+  const float s_im = level_value<L>(gray_decode(gq), amp);
+
+  float n_re, n_im;
+  gauss_pair(seed, h.noise, h.noise_phase, n_re, n_im);
+  n_re = __fmul_rn(n_re, nscale);
+  n_im = __fmul_rn(n_im, nscale);
+  float c_re, c_im;
+  if (FADING == kAwgn) {
+    c_re = __fmul_rn(sg, 1.0f);
+    c_im = 0.0f;
+  } else {
+    float h_re, h_im;
+    gauss_pair(seed, h.fade, h.fade_phase, h_re, h_im);
+    c_re = __fmul_rn(__fmul_rn(sg, h_re), kSqrtHalf);
+    c_im = __fmul_rn(__fmul_rn(sg, h_im), kSqrtHalf);
+  }
+  const float c2 =
+      fmaxf(__fadd_rn(__fmul_rn(c_re, c_re), __fmul_rn(c_im, c_im)), 1e-20f);
+  // n / c = n * conj(c) / |c|^2
+  const float y_re = __fadd_rn(
+      s_re,
+      __fdiv_rn(__fadd_rn(__fmul_rn(n_re, c_re), __fmul_rn(n_im, c_im)), c2));
+  const float y_im = __fadd_rn(
+      s_im,
+      __fdiv_rn(__fsub_rn(__fmul_rn(n_im, c_re), __fmul_rn(n_re, c_im)), c2));
+
+  uint32_t gi_hat = axis_level<L>(y_re, inv);
+  uint32_t gq_hat = axis_level<L>(y_im, inv);
+  gi_hat ^= gi_hat >> 1;  // Gray encode
+  gq_hat ^= gq_hat >> 1;
+  uint32_t rx = 0;
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    rx |= ((gi_hat >> (P - 1 - j)) & 1u) << (K - 1 - 2 * j);
+    rx |= ((gq_hat >> (P - 1 - j)) & 1u) << (K - 2 - 2 * j);
+  }
+  return rx;
+}
+
+// One client's link: its seed and the scales of its noise and fading.
+struct Link {
+  uint32_t seed;
+  float nscale;  // sqrt(noise_power * 0.5)
+  float sg;      // sqrt(large_scale_gain)
+};
+
+__device__ __forceinline__ Link load_link(const uint32_t* seeds,
+                                          const float* npow,
+                                          const float* gains, int c) {
+  return Link{seeds[c], __fsqrt_rn(__fmul_rn(npow[c], 0.5f)),
+              __fsqrt_rn(gains[c])};
 }
 
 template <int WB>
@@ -194,91 +268,150 @@ struct Params {
   float inv;          // float32(1 / amp)
 };
 
-// K1: blockIdx.y = client row, one thread per word of the row.
+// The block's words: thread (lane, slot) owns word i = blockIdx.x * 32 +
+// lane of the clients its slot runs. hs holds the seed-free hash halves
+// of every symbol of the block's 32 words, computed once per block.
 template <int K, int FADING, int WB>
-__global__ void k1_approx_channel_batch(
-    const typename Wire<WB>::T* __restrict__ x,
-    typename Wire<WB>::T* __restrict__ out, int* __restrict__ errs,
-    const uint32_t* __restrict__ seeds, const float* __restrict__ npow,
-    const float* __restrict__ gains, Params p) {
-  constexpr uint32_t S = WB / K;
-  const int c = blockIdx.y;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  uint32_t flips = 0;
-  if (i < p.n) {
-    const size_t off = static_cast<size_t>(c) * p.n + i;
-    if (c < p.num_active) {
-      const uint32_t u = x[off];
-      const uint32_t tile = static_cast<uint32_t>(i) / p.bw;
-      const uint32_t w = static_cast<uint32_t>(i) % p.bw;
-      const uint32_t base = tile * (static_cast<uint32_t>(p.bw) * S);
-      const float nscale = __fsqrt_rn(__fmul_rn(npow[c], 0.5f));
-      const float sg = __fsqrt_rn(gains[c]);
-      const uint32_t u_hat =
-          channel_word<K, FADING, WB>(u, seeds[c], base, w, p.bw,
-                                      p.fade_block, nscale, sg, p.amp, p.inv) &
-          p.clamp;
-      out[off] = static_cast<typename Wire<WB>::T>(u_hat);
-      flips = __popc(u ^ u_hat);
-    } else {
-      out[off] = 0;
+struct BlockWords {
+  static constexpr int S = WB / K;
+  int lane, slot, i;
+  bool in_row;
+
+  // Fills hs (each thread a share of the symbols) and waits for it.
+  __device__ __forceinline__ BlockWords(const Params& p,
+                                        SymbolHash (&hs)[kMaxSymbols][kWords]) {
+    lane = threadIdx.x;
+    slot = threadIdx.y;
+    i = blockIdx.x * kWords + lane;
+    in_row = i < p.n;
+    // interleave: symbol s of word i has index base + s * bw + w
+    const uint32_t tile = static_cast<uint32_t>(i) / p.bw;
+    const uint32_t w = static_cast<uint32_t>(i) % p.bw;
+    const uint32_t base = tile * (static_cast<uint32_t>(p.bw) * S);
+    for (int s = slot; s < S; s += kSlots) {
+      hs[s][lane] = symbol_hash<FADING>(
+          base + static_cast<uint32_t>(s) * p.bw + w, p.fade_block);
     }
+    __syncthreads();
   }
+
+  // Word u of one client through the channel: the received word, before
+  // the clamp.
+  __device__ __forceinline__ uint32_t channel_word(
+      uint32_t u, const Link& link, const SymbolHash (&hs)[kMaxSymbols][kWords],
+      const Params& p) const {
+    uint32_t u_hat = 0;
+    // Not unrolled: each symbol inlines four libdevice calls with their
+    // slow paths, and unrolling by two saved few instructions and no time
+    // on the card.
+#pragma unroll 1
+    for (int s = 0; s < S; ++s) {
+      const int shift = WB - K * (s + 1);
+      const uint32_t sym = (u >> shift) & ((1u << K) - 1u);
+      u_hat |= channel_symbol<K, FADING>(sym, link.seed, hs[s][lane],
+                                         link.nscale, link.sg, p.amp, p.inv)
+               << shift;
+    }
+    return u_hat;
+  }
+};
+
+// Adds a warp's error counts for client c into errs[c]. Every lane of the
+// warp must call it.
+__device__ __forceinline__ void add_errors(int* errs, int c, uint32_t flips) {
   flips = __reduce_add_sync(0xffffffffu, flips);
   if ((threadIdx.x & 31) == 0 && flips != 0) {
     atomicAdd(&errs[c], static_cast<int>(flips));
   }
 }
 
-// K2: one thread per word; the thread walks the clients in order.
+// K1: a block is 32 words (threadIdx.x) x 8 client slots (threadIdx.y) of
+// one group of kChunk clients (blockIdx.y); slot g runs clients
+// group + m * 8 + g, m < kPerSlot, one after another.
 template <int K, int FADING, int WB>
-__global__ void k2_approx_channel_aggregate(
-    const typename Wire<WB>::T* __restrict__ x, float* __restrict__ agg,
-    int* __restrict__ errs, const uint32_t* __restrict__ seeds,
-    const float* __restrict__ npow, const float* __restrict__ gains,
-    const float* __restrict__ weights, int clients, int valid_words,
-    Params p) {
-  constexpr uint32_t S = WB / K;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool in_row = i < p.n;
-  const uint32_t tile = static_cast<uint32_t>(i) / p.bw;
-  const uint32_t w = static_cast<uint32_t>(i) % p.bw;
-  const uint32_t base = tile * (static_cast<uint32_t>(p.bw) * S);
-  const int active = min(clients, p.num_active);
-  float acc = 0.0f;
-  for (int c = 0; c < active; ++c) {
-    uint32_t flips = 0;
-    if (in_row) {
-      const uint32_t u = x[static_cast<size_t>(c) * p.n + i];
-      const float nscale = __fsqrt_rn(__fmul_rn(npow[c], 0.5f));
-      const float sg = __fsqrt_rn(gains[c]);
-      const uint32_t u_hat =
-          channel_word<K, FADING, WB>(u, seeds[c], base, w, p.bw,
-                                      p.fade_block, nscale, sg, p.amp, p.inv) &
-          p.clamp;
-      acc = __fadd_rn(acc, __fmul_rn(weights[c], Wire<WB>::to_f32(u_hat)));
-      if (i < valid_words) flips = __popc(u ^ u_hat);
+__global__ void __launch_bounds__(kThreads, kMinBlocks) k1_approx_channel_batch(
+    const typename Wire<WB>::T* __restrict__ x,
+    typename Wire<WB>::T* __restrict__ out, int* __restrict__ errs,
+    const uint32_t* __restrict__ seeds, const float* __restrict__ npow,
+    const float* __restrict__ gains, int clients, Params p) {
+  __shared__ SymbolHash hs[kMaxSymbols][kWords];
+  const BlockWords<K, FADING, WB> blk(p, hs);
+  const int group = blockIdx.y * kChunk;
+#pragma unroll 1
+  for (int m = 0; m < kPerSlot; ++m) {
+    const int c = group + m * kSlots + blk.slot;
+    if (c >= clients) break;  // uniform across the warp
+    // Masked rows (c >= num_active) are written as 0 and count 0 errors.
+    uint32_t u = 0, u_hat = 0;
+    if (blk.in_row && c < p.num_active) {
+      const size_t off = static_cast<size_t>(c) * p.n + blk.i;
+      u = x[off];
+      u_hat = blk.channel_word(u, load_link(seeds, npow, gains, c), hs, p) &
+              p.clamp;
     }
-    flips = __reduce_add_sync(0xffffffffu, flips);
-    if ((threadIdx.x & 31) == 0 && flips != 0) {
-      atomicAdd(&errs[c], static_cast<int>(flips));
+    if (blk.in_row) {
+      out[static_cast<size_t>(c) * p.n + blk.i] =
+          static_cast<typename Wire<WB>::T>(u_hat);
     }
+    add_errors(errs, c, __popc(u ^ u_hat));
   }
-  if (in_row) agg[i] = acc;
 }
 
-constexpr int kK1Threads = 256;
-constexpr int kK2Threads = 64;
+// K2: the same block of 32 words x 8 slots walks all active clients in
+// chunks of kChunk; see the note at the top for the order of the sum.
+// Out-of-range threads are masked by predicates, never by a return,
+// because every thread reaches the barriers.
+template <int K, int FADING, int WB>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    k2_approx_channel_aggregate(
+        const typename Wire<WB>::T* __restrict__ x, float* __restrict__ agg,
+        int* __restrict__ errs, const uint32_t* __restrict__ seeds,
+        const float* __restrict__ npow, const float* __restrict__ gains,
+        const float* __restrict__ weights, int clients, int valid_words,
+        Params p) {
+  __shared__ SymbolHash hs[kMaxSymbols][kWords];
+  __shared__ float xs[kChunk][kWords];
+  const BlockWords<K, FADING, WB> blk(p, hs);
+  const bool counted = blk.in_row && blk.i < valid_words;
+  const int active = min(clients, p.num_active);
+  float acc = 0.0f;
+  for (int c0 = 0; c0 < active; c0 += kChunk) {
+#pragma unroll 1
+    for (int m = 0; m < kPerSlot; ++m) {
+      const int row = m * kSlots + blk.slot;
+      const int c = c0 + row;
+      if (c >= active) break;  // uniform across the warp
+      uint32_t u = 0, u_hat = 0;
+      if (blk.in_row) {
+        u = x[static_cast<size_t>(c) * p.n + blk.i];
+        u_hat = blk.channel_word(u, load_link(seeds, npow, gains, c), hs, p) &
+                p.clamp;
+      }
+      xs[row][blk.lane] = Wire<WB>::to_f32(u_hat);
+      add_errors(errs, c, counted ? __popc(u ^ u_hat) : 0u);
+    }
+    __syncthreads();
+    if (blk.slot == 0 && blk.in_row) {
+      const int rows = min(kChunk, active - c0);
+      for (int j = 0; j < rows; ++j) {
+        acc = __fadd_rn(acc, __fmul_rn(weights[c0 + j], xs[j][blk.lane]));
+      }
+    }
+    __syncthreads();
+  }
+  if (blk.slot == 0 && blk.in_row) agg[blk.i] = acc;
+}
 
 template <int K, int FADING, int WB>
 void launch_k1(const void* x, void* out, int* errs, const uint32_t* seeds,
                const float* npow, const float* gains, int clients,
                const Params& p, cudaStream_t stream) {
   using T = typename Wire<WB>::T;
-  const dim3 grid((p.n + kK1Threads - 1) / kK1Threads, clients);
-  k1_approx_channel_batch<K, FADING, WB><<<grid, kK1Threads, 0, stream>>>(
+  const dim3 grid((p.n + kWords - 1) / kWords, (clients + kChunk - 1) / kChunk);
+  const dim3 block(kWords, kSlots);
+  k1_approx_channel_batch<K, FADING, WB><<<grid, block, 0, stream>>>(
       static_cast<const T*>(x), static_cast<T*>(out), errs, seeds, npow, gains,
-      p);
+      clients, p);
 }
 
 template <int K, int FADING, int WB>
@@ -287,8 +420,9 @@ void launch_k2(const void* x, float* agg, int* errs, const uint32_t* seeds,
                int clients, int valid_words, const Params& p,
                cudaStream_t stream) {
   using T = typename Wire<WB>::T;
-  const dim3 grid((p.n + kK2Threads - 1) / kK2Threads);
-  k2_approx_channel_aggregate<K, FADING, WB><<<grid, kK2Threads, 0, stream>>>(
+  const dim3 grid((p.n + kWords - 1) / kWords);
+  const dim3 block(kWords, kSlots);
+  k2_approx_channel_aggregate<K, FADING, WB><<<grid, block, 0, stream>>>(
       static_cast<const T*>(x), agg, errs, seeds, npow, gains, weights,
       clients, valid_words, p);
 }

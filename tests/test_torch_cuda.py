@@ -83,6 +83,114 @@ def test_kernels_match_plain(cuda_device, k, fading, word_bits):
     assert torch.equal(_bits(ak_n), _bits(lay))
 
 
+def _general_inputs(device, c, word_bits, n=2048, seed=0):
+    """C clients at 10 dB (row 0 noiseless) with weights drawn in
+    [0.2, 2]: unlike powers of two, their products round, so a sum taken
+    in another client order shows."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.uniform(-0.9, 0.9, (c, n)).astype(np.float32))
+    x = x.to(torch.bfloat16) if word_bits == 16 else x
+    seeds = torch.from_numpy(rng.integers(0, 2**32, c, dtype=np.int64))
+    npow = torch.full((c,), G0 / 10)
+    npow[0] = 0.0
+    gains = torch.full((c,), G0)
+    w = torch.from_numpy(rng.uniform(0.2, 2.0, c).astype(np.float32))
+    return [t.to(device) for t in (x, seeds, npow, gains, w)]
+
+
+def _check_k1_k2(x, seeds, npow, gains, w, kw, num_active=None,
+                 valid_words=None):
+    """K1 and K2 against their plain versions (bit for bit up to the edge
+    rule, the noiseless row exact) and K2 against K1's rows summed in
+    client order, bit for bit."""
+    c = x.shape[0]
+    rows = c if num_active is None else min(c, num_active)
+    xk, ek = TAC.approx_channel_batch_kernel(x, seeds, npow, gains,
+                                             num_active=num_active, **kw)
+    xp, ep, edges = TR.approx_channel_batch_ref(
+        x, seeds, npow, gains, num_active=num_active, with_edges=True, **kw)
+    diff = _bits(xk) != _bits(xp)
+    assert not diff[0].any()
+    assert bool((edges[diff] < EDGE).all())
+    assert not xk[rows:].any() and not ek[rows:].any()
+    if not diff.any():
+        assert torch.equal(ek, ep)
+    ak, ek2 = TAC.approx_channel_batch_aggregate_kernel(
+        x, seeds, npow, gains, w, num_active=num_active,
+        valid_words=valid_words, **kw)
+    ap, ep2 = TR.approx_channel_batch_aggregate_ref(
+        x, seeds, npow, gains, w, num_active=num_active,
+        valid_words=valid_words, **kw)
+    calm = (edges[:rows] >= EDGE).all(dim=0)
+    assert torch.equal(_bits(ak)[calm], _bits(ap)[calm])
+    if bool(calm.all()):
+        assert torch.equal(ek2, ep2)
+    assert not ek2[rows:].any()
+    # the same rows, summed in client order outside the kernel
+    lay = TT._scan_weighted_sum(xk, w, num_active)
+    assert torch.equal(_bits(ak), _bits(lay))
+    if num_active is None:
+        wn = TA.normalize_weights(w)
+        ak_n, _ = TAC.approx_channel_batch_aggregate_kernel(
+            x, seeds, npow, gains, wn, valid_words=valid_words, **kw)
+        lay_n = TA.fedsgd_aggregate_batch(xk.float(), w)
+        assert torch.equal(_bits(ak_n), _bits(lay_n))
+
+
+# Both kernels take clients in chunks of 32, 8 slots of 4 clients each
+# (K1 one chunk a block, K2 every chunk in turn): C = 31, 32, 33 straddle
+# a chunk, 6 and 37 are no multiple of the 8 slots.
+@pytest.mark.cuda
+@pytest.mark.parametrize("word_bits", [32, 16])
+@pytest.mark.parametrize("c", [1, 6, 31, 32, 33, 37, 100])
+def test_client_counts_around_chunks(cuda_device, c, word_bits):
+    x, seeds, npow, gains, w = _general_inputs(cuda_device, c, word_bits,
+                                               seed=c)
+    mask = 0xBFFF if word_bits == 16 else 0xBFFFFFFF
+    _check_k1_k2(x, seeds, npow, gains, w,
+                 dict(bits_per_symbol=2, clamp_mask=mask,
+                      word_bits=word_bits))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("word_bits", [32, 16])
+@pytest.mark.parametrize("fading", ["rayleigh", "block_rayleigh"])
+@pytest.mark.parametrize("k", [2, 8])
+def test_chunk_straddling_sweep(cuda_device, k, fading, word_bits):
+    x, seeds, npow, gains, w = _general_inputs(cuda_device, 37, word_bits,
+                                               seed=k + word_bits)
+    mask = 0xBFFF if word_bits == 16 else 0xBFFFFFFF
+    _check_k1_k2(x, seeds, npow, gains, w,
+                 dict(bits_per_symbol=k, fading=fading, clamp_mask=mask,
+                      word_bits=word_bits))
+
+
+# num_active = 2 and 6 end inside the first round of the 8 slots, 45 and
+# 70 inside a later chunk.
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_active", [2, 6, 45, 70])
+def test_num_active_inside_groups_and_chunks(cuda_device, num_active):
+    x, seeds, npow, gains, w = _general_inputs(cuda_device, 100, 32,
+                                               seed=num_active)
+    _check_k1_k2(x, seeds, npow, gains, w, dict(bits_per_symbol=4),
+                 num_active=num_active)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("word_bits", [32, 16])
+def test_valid_words_and_ragged_rows(cuda_device, word_bits):
+    """Rows of 7 x 300 words (no multiple of a 32-word block) and bit
+    errors counted on the first 2,000 only."""
+    x, seeds, npow, gains, w = _general_inputs(cuda_device, 37, word_bits,
+                                               n=2100, seed=5)
+    mask = 0xBFFF if word_bits == 16 else 0xBFFFFFFF
+    _check_k1_k2(x, seeds, npow, gains, w,
+                 dict(bits_per_symbol=2, fading="block_rayleigh",
+                      clamp_mask=mask, block_words=300,
+                      word_bits=word_bits),
+                 valid_words=2000)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("num_active", [0, 1, 3])
 def test_masked_rows_on_card(cuda_device, num_active):
@@ -129,7 +237,9 @@ def test_launch_counters_move_once_per_launch(cuda_device):
     TAC.approx_channel_batch_aggregate_kernel(x, seeds, npow, gains, w)
     TAC.approx_channel_batch_kernel(x.cpu(), seeds.cpu(), npow.cpu(),
                                     gains.cpu())
-    assert TAC.launch_counts() == {"k1": 1, "k2": 1}
+    assert TAC.launch_counts() == {"k0": 0, "k1": 1, "k2": 1}
+    TAC.approx_channel_kernel(x[1].contiguous(), 7, float(npow[1]), G0)
+    assert TAC.launch_counts() == {"k0": 1, "k1": 2, "k2": 1}
 
 
 @pytest.mark.cuda
@@ -161,7 +271,8 @@ def test_run_fl_launches_once_per_round(cuda_device, fused):
     TAC.reset_launch_counts()
     res = run_fl(config(), cfg, cx, cy, cx[0], cy[0], n_rounds=2,
                  batch_per_round=8, eval_every=1, fused_aggregate=fused)
-    want = {"k1": 0, "k2": 2} if fused else {"k1": 2, "k2": 0}
+    want = ({"k0": 0, "k1": 0, "k2": 2} if fused
+            else {"k0": 0, "k1": 2, "k2": 0})
     assert TAC.launch_counts() == want
     assert all(np.isfinite(res.accuracy))
 

@@ -189,6 +189,32 @@ def test_k2_plain_vs_pallas_and_layered(k, word_bits):
                                   ap_n.numpy().view(np.uint32))
 
 
+def test_k2_plain_sums_in_client_order():
+    """The contract K2 is held to on the card: at C = 37 (more than one of
+    the kernel's client chunks of 32, no multiple of its 8 slots) with
+    weights drawn in [0.2, 2], the plain K2 equals a float32 numpy loop of
+    one multiply then one add per client, in client order, bit for bit."""
+    c = 37
+    x = np.random.default_rng(37).uniform(-1, 1, (c, N)).astype(np.float32)
+    seeds = np.random.default_rng(38).integers(0, 2**32, c, dtype=np.int64)
+    npow = np.full(c, G0 / 10, np.float32)
+    gains = np.full(c, G0, np.float32)
+    w = np.random.default_rng(39).uniform(0.2, 2.0, c).astype(np.float32)
+    kw = dict(bits_per_symbol=2, fading="rayleigh", block_words=BW)
+    rows, _ = TR.approx_channel_batch_ref(
+        torch.from_numpy(x), torch.from_numpy(seeds), _t(npow), _t(gains),
+        **kw)
+    agg, _ = TR.approx_channel_batch_aggregate_ref(
+        torch.from_numpy(x), torch.from_numpy(seeds), _t(npow), _t(gains),
+        _t(w), **kw)
+    want = _sum_separate(rows.numpy(), w)
+    np.testing.assert_array_equal(agg.numpy().view(np.uint32),
+                                  want.view(np.uint32))
+    # another order gives other bits: the test can see a reordered sum
+    back = _sum_separate(rows.numpy()[::-1], w[::-1])
+    assert np.any(back.view(np.uint32) != want.view(np.uint32))
+
+
 @pytest.mark.parametrize("num_active", [0, 1, 2])
 def test_masked_rows(num_active):
     xj, xt = _payload(32, seed=5)
@@ -292,4 +318,4 @@ def test_cpu_wrapper_counts_no_launch():
     TAC.approx_channel_batch_aggregate_kernel(
         xt, _t(SEEDS, np.int64), _t(npow), _t(gains),
         torch.full((C,), 1.0 / C), block_words=BW)
-    assert TAC.launch_counts() == {"k1": 0, "k2": 0}
+    assert TAC.launch_counts() == {"k0": 0, "k1": 0, "k2": 0}
