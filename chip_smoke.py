@@ -35,6 +35,22 @@ against their plain PyTorch versions. Phases, each of which fails the run
    uplink (with its key-schedule and kernel parts), apply and eval. A
    4-client world run on the GPU and on the CPU checks the result against
    the CPU plain path.
+5c. The layered PHY and the ECRT baseline, which launch no kernel:
+   (a) QPSK BER over Rayleigh at 10 and 20 dB (2^20 symbols) within 5
+   binomial standard deviations of the closed form; (b) Table I on 16-QAM,
+   MSB error rate below the LSB's; (c) layered ``transmit_batch`` on the
+   card against the CPU (C=8, N=4,096, k x fading x wire x naive/approx,
+   row 0 noiseless and exact, any other differing word within
+   ``_layered_edge`` of a decision edge); (d) LDPC encode/syndrome on the
+   card, the real ECRT chain on one client x 1,024 floats, and
+   ``calibrate_ecrt`` at 10 and 20 dB (48 codewords, ``max_tx`` 6) timed
+   on the card beside the CPU; (e) the paper's Fig. 3 arms at full width
+   (100 clients, paper CNN, QPSK 10 dB, 3 rounds each of approx and naive
+   on the layered PHY and ECRT resolved by the engine): launch counters
+   0, per-round phase times, peak memory, airtime per client against
+   ``round_airtime``'s formula and the ECRT/approx ratio against
+   ``(2 E 349,440 1.05 / 13e6 + 200e-6 E) / (349,440 / 13e6 + 200e-6)``,
+   and the layered uplink alone beside its four normals per symbol.
 6. Times at the main-path shape (C=100, N=22,528, QPSK, f32; K0 at C=1):
    kernel and plain version with CUDA events (median of single launches
    after a warm-up), each kernel's bound from bytes and operations, the
@@ -582,6 +598,239 @@ def phase_reference(torch, device) -> None:
         _log(f"  fused={fused}: GPU {a.accuracy} vs CPU {b.accuracy}")
 
 
+def _layered_edge(levels: int) -> float:
+    """Decision margin within which a layered-PHY word may differ between
+    two implementations: the noise and fading normals agree to 128 ULP
+    (``prng.normal``), so a pre-round value ``(y/a + L-1)/2`` inside the
+    grid, where ``|y/a| <= 2L``, moves by at most about
+    ``0.5 * 2L * 2 * 128 * 2**-23 = L * 3.1e-5``; ``L * 2**-14`` doubles it."""
+    return levels * 2.0**-14
+
+
+def _layered_card_vs_cpu(torch, device, small: bool) -> None:
+    """(c) Layered ``transmit_batch`` on the card against the same call on
+    the CPU, row 0 noiseless."""
+    from repro_torch.core import channel, prng, transport
+
+    c, n = (4, 512) if small else (8, 4096)
+    g = torch.Generator().manual_seed(5)
+    snr = (math.inf, 10.0, 10.0, 20.0, 20.0, 5.0, 5.0, 10.0)[:c]
+    worst, total = 0.0, 0
+    for k, mod in ((2, "qpsk"), (4, "16qam"), (8, "256qam")):
+        for fading in ("rayleigh", "awgn", "block_rayleigh"):
+            for wire in ("float32", "bfloat16"):
+                for mode in ("naive", "approx"):
+                    x = torch.rand((c, n), generator=g) * 1.8 - 0.9
+                    cfg = transport.TransportConfig(
+                        mode=mode, modulation=mod, wire_dtype=wire,
+                        channel=channel.ChannelConfig(snr_db=snr,
+                                                      fading=fading))
+                    key = prng.PRNGKey(k * 100 + len(fading))
+                    xg, sg = transport.transmit_batch(x, key, cfg,
+                                                      device=device)
+                    xc, sc = transport.transmit_batch(x, key, cfg,
+                                                      device="cpu")
+                    bg = xg.cpu().view(torch.int32)
+                    bc = xc.view(torch.int32)
+                    diff = (bg != bc) & ~(torch.isnan(xg.cpu())
+                                          & torch.isnan(xc))
+                    tag = f"k={k} {fading} {wire} {mode}"
+                    _check(not bool(diff[0].any()),
+                           f"layered card vs CPU differ at noise 0 ({tag})")
+                    for f in ("data_symbols", "transmissions", "n_bits",
+                              "bits_on_air"):
+                        _check(torch.equal(getattr(sg, f).cpu(),
+                                           getattr(sc, f)),
+                               f"layered stats {f} differ ({tag})")
+                    if bool(diff.any()):
+                        margins = transport._word_margins(
+                            x, transport.client_keys(key, c), cfg,
+                            channel.snr_db_vector(snr, c))
+                        m = float(margins[diff].max())
+                        worst = max(worst, m)
+                        _check(m < _layered_edge(1 << (k // 2)),
+                               f"layered word differs {m:.3g} from a "
+                               f"decision edge ({tag})")
+                    else:
+                        _check(torch.equal(sg.bit_errors.cpu(),
+                                           sc.bit_errors),
+                               f"layered bit errors differ ({tag})")
+                    total += int(diff.sum())
+    _log(f"  (c) layered transmit_batch card vs CPU, C={c}, N={n}, 36 "
+         f"configurations: words differing {total}, largest decision "
+         f"margin among them {worst:.3g} (allowed L * 2^-14)")
+
+
+def _ecrt_checks(torch, device, small: bool) -> dict:
+    """(d) LDPC encode/syndrome on the card, the real ECRT chain on one
+    client, and ``calibrate_ecrt`` on the card and on the CPU."""
+    from repro_torch.core import channel, ecrt, latency, prng, transport
+
+    code = ecrt.LdpcCode()
+    msgs = prng.randint(prng.PRNGKey(8, device=device), (8, code.k), 0, 2)
+    cw = ecrt.encode(msgs, code)
+    _check(torch.equal(cw.cpu(), ecrt.encode(msgs.cpu(), code)),
+           "LDPC encode differs between the card and the CPU")
+    _check(bool(ecrt.syndrome_ok(cw, code).all()), "codewords fail H c = 0")
+    flipped = cw.clone()
+    flipped[0, 17] ^= 1
+    _check(not bool(ecrt.syndrome_ok(flipped, code)[0]),
+           "a flipped bit passes the syndrome")
+    x = torch.randn((1024,), generator=torch.Generator().manual_seed(9)) * 0.01
+    cfg = transport.TransportConfig(
+        mode="ecrt", channel=channel.ChannelConfig(snr_db=10.0))
+    t0 = time.perf_counter()
+    xh, st = transport.transmit_flat(x, prng.PRNGKey(9), cfg, device=device)
+    secs = time.perf_counter() - t0
+    _check(torch.equal(xh.cpu(), x), "real ECRT did not return the payload")
+    _check(float(st.transmissions) >= 1 and float(st.bit_errors) == 0,
+           f"real ECRT stats {st}")
+    _log(f"  (d) LDPC encode/syndrome on the card match the CPU; real ECRT, "
+         f"1 client x 1,024 floats at 10 dB: payload exact, mean "
+         f"transmissions {float(st.transmissions):.4f}, "
+         f"{float(st.data_symbols):.0f} symbols, {secs:.3f} s")
+    e_tx = {}
+    for snr in (10.0, 20.0):
+        latency._calibrate_ecrt.cache_clear()
+        t0 = time.perf_counter()
+        e_dev = latency.calibrate_ecrt(
+            snr, n_codewords=latency.DEFAULT_CALIB_CODEWORDS,
+            max_tx=latency.DEFAULT_CALIB_MAX_TX, device=device)
+        t_dev = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        e_cpu = latency.calibrate_ecrt(
+            snr, n_codewords=latency.DEFAULT_CALIB_CODEWORDS,
+            max_tx=latency.DEFAULT_CALIB_MAX_TX, device="cpu")
+        t_cpu = time.perf_counter() - t0
+        _check(1.0 <= e_dev <= latency.DEFAULT_CALIB_MAX_TX,
+               f"E[tx] {e_dev} out of range")
+        # Each codeword's count may move by one where a posterior sits at
+        # 0 to rounding, so the two devices may differ by 1/48 per such.
+        _check(abs(e_dev - e_cpu) <= 2 / latency.DEFAULT_CALIB_CODEWORDS,
+               f"calibrate_ecrt {snr} dB: card {e_dev} vs CPU {e_cpu}")
+        e_tx[snr] = e_dev
+        _log(f"  (d) calibrate_ecrt({snr:g} dB, 48 codewords, max_tx 6): "
+             f"E[tx] {e_dev!r} on {device.type} in {t_dev:.3f} s, "
+             f"{e_cpu!r} on the CPU in {t_cpu:.3f} s")
+    return e_tx
+
+
+def _fig3_arms(torch, device, small: bool) -> None:
+    """(e) The paper's Fig. 3 arms at full width through ``run_fl``."""
+    from repro_torch.configs.mnist_cnn import config
+    from repro_torch.core import channel, latency, prng, transport
+    from repro_torch.fl import engine
+    from repro_torch.fl.loop import run_fl
+    from repro_torch.kernels import approx_channel as ac
+
+    n_clients = 4 if small else 100
+    cx, cy, ti, tl = _world(n_clients, small)
+    cfg = config()
+    rounds, snr = 3, 10.0
+    ch = channel.ChannelConfig(snr_db=snr)
+    arms = {
+        "approx": transport.TransportConfig(mode="approx", channel=ch),
+        "naive": transport.TransportConfig(mode="naive", channel=ch),
+        "ecrt": transport.TransportConfig(mode="ecrt", channel=ch,
+                                          simulate_fec=True),
+    }
+    tm = latency.PhyTimings()
+    payload = 21840
+    air = {}
+    for name, tcfg in arms.items():
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        ac.reset_launch_counts()
+        res = run_fl(cfg, tcfg, cx, cy, ti, tl, n_rounds=rounds,
+                     batch_per_round=32, eval_every=1, seed=0, device=device)
+        counts = ac.launch_counts()
+        _check(counts == {"k0": 0, "k1": 0, "k2": 0},
+               f"{name} arm launched kernels: {counts}")
+        _check(all(math.isfinite(a) for a in res.accuracy),
+               f"{name} accuracy is not finite")
+        peak = (f"{torch.cuda.max_memory_allocated(device) / 2**30:.3f} GiB"
+                if device.type == "cuda" else "not measured on the CPU")
+        # Per-client airtime from round_airtime's formula on the stats.
+        if name == "ecrt":
+            resolved, scale = engine.resolve_ecrt_analytic(tcfg, n_clients,
+                                                           device)
+            _check(scale is None, "homogeneous ECRT got an airtime scale")
+            e = resolved.ecrt_expected_tx
+            sym = 2 * payload * 32 / 2 * e
+            want = sym / tm.symbol_rate * (1 + tm.fec_encode_overhead) \
+                + e * tm.t_overhead
+        else:
+            want = payload * 16 / tm.symbol_rate + tm.t_overhead
+        per_client = [a / ((r + 1) * n_clients)
+                      for r, a in enumerate(res.airtime_s)]
+        # float32 pricing and sums: 16 ULP of float32
+        _check(all(abs(p - want) <= 2**-20 * want for p in per_client),
+               f"{name} per-client airtime {per_client} != {want}")
+        air[name] = res.airtime_s
+        _log(f"  (e) {name}: {n_clients} clients, launches {counts}, "
+             f"accuracy {res.accuracy}, cumulative airtime {res.airtime_s} "
+             f"s, peak memory {peak}")
+        for r, ph in enumerate(res.phase_s):
+            _log(f"    round {r}: " + ", ".join(
+                f"{k} {v * 1e3:.3f} ms" for k, v in ph.items()))
+    # Where a layered-PHY uplink's time goes: the whole batched call at the
+    # round's shape, and the four normals per symbol it draws.
+    clock = Clock(torch, device)
+    x = torch.randn((n_clients, payload), generator=torch.Generator()
+                    .manual_seed(10)).mul_(1e-2).to(device)
+    key = prng.PRNGKey(10)
+    reps = 5 if device.type == "cuda" else 2
+    up_ms = clock.median_ms(lambda: transport.transmit_batch(
+        x, key, arms["approx"], device=device), reps, warmup=1)
+    keys = transport.client_keys(key, n_clients).to(device)
+    nrm_ms = clock.median_ms(lambda: [prng.normal(keys, (payload * 16,))
+                                      for _ in range(4)], reps, warmup=1)
+    _log(f"  (e) layered uplink alone, {n_clients} x {payload} floats: "
+         f"{up_ms:.3f} ms; of it the four normals per symbol "
+         f"{nrm_ms:.3f} ms ({nrm_ms / up_ms:.0%}) (medians of {reps})")
+    ratio = air["ecrt"][-1] / air["approx"][-1]
+    want = ((2 * e * 349440 * 1.05 / 13e6 + e * 200e-6)
+            / (349440 / 13e6 + 200e-6))
+    _check(abs(ratio - want) <= 2**-20 * want,
+           f"ECRT/approx airtime ratio {ratio} != {want}")
+    _log(f"  (e) ECRT/approx airtime ratio {ratio!r} (formula {want!r}, "
+         f"E[tx] {e!r})")
+
+
+def phase_layered(torch, device, small: bool) -> None:
+    """Phase 5c: the layered PHY and the ECRT baseline, which launch none
+    of the kernels."""
+    from repro_torch.core import modulation, prng
+
+    _log("== phase 5c: layered PHY and ECRT")
+    qpsk, qam16 = modulation.MOD_SCHEMES["qpsk"], modulation.MOD_SCHEMES["16qam"]
+    n = 1 << (16 if small else 20)
+    for snr in (10.0, 20.0):
+        ber = float(modulation.measure_ber(prng.PRNGKey(1), qpsk, snr,
+                                           n_symbols=n, device=device))
+        p = modulation.rayleigh_qpsk_ber(snr)
+        sigma = math.sqrt(p * (1 - p) / (2 * n))
+        _check(abs(ber - p) <= 5 * sigma,
+               f"QPSK Rayleigh BER {ber} at {snr} dB vs closed form {p}")
+        _log(f"  (a) QPSK Rayleigh {snr:g} dB, {n} symbols: BER {ber:.6g}, "
+             f"closed form {p:.6g} ({(ber - p) / sigma:+.2f} sigma)")
+    k1, k2 = prng.split(prng.PRNGKey(4, device=device))
+    sym = prng.randint(k1, (1 << 16,), 0, qam16.points)
+    noise = torch.complex(prng.normal(k2, sym.shape),
+                          prng.normal(prng.PRNGKey(5, device=device),
+                                      sym.shape)) * 0.25
+    rx = modulation.demod_hard(modulation.modulate(sym, qam16) + noise, qam16)
+    diff = sym ^ rx
+    msb = float(((diff >> 3) & 1).float().mean())
+    lsb = float((diff & 1).float().mean())
+    _check(msb < lsb, f"Table I: MSB error rate {msb} >= LSB {lsb}")
+    _log(f"  (b) Table I, 16-QAM: MSB error rate {msb:.5f} < LSB {lsb:.5f}")
+    if device.type == "cuda":
+        _layered_card_vs_cpu(torch, device, small)
+    _ecrt_checks(torch, device, small)
+    _fig3_arms(torch, device, small)
+
+
 def phase_times(torch, device, small: bool, launches: dict, sass: dict,
                 mhz) -> list:
     from repro_torch.core import aggregation, prng, transport
@@ -705,6 +954,7 @@ def main(argv=None) -> int:
         launches = phase_main_path(torch, device, small)
         if device.type == "cuda":
             phase_reference(torch, device)
+        phase_layered(torch, device, small)
         rows = phase_times(torch, device, small, launches, sass, mhz)
     except PhaseError as e:
         print(f"chip_smoke.py: FAILED: {e}", file=sys.stderr)

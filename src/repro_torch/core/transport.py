@@ -1,25 +1,38 @@
-"""Composable gradient transport (port, part; the paper's Sec. IV uplink).
+"""Composable gradient transport (port; the paper's Sec. IV uplink).
 
-Counterpart of ``repro.core.transport`` for the main path: the
-``perfect`` mode and the kernel path of ``naive``/``approx``, single-client
-(``transmit_flat``) and batched (``transmit_batch``), with the fused
-uplink + aggregation (``transmit_batch_aggregate``) and the pytree
-front-ends of both.
+Counterpart of ``repro.core.transport``. Modes:
+
+``perfect``  error-free delivery (genie).
+``naive``    raw float bits through the fading channel, no prior.
+``approx``   the paper's scheme: MSB-first packing + Gray-QAM unequal
+             protection + symbol interleaving + the exponent clamp.
+``ecrt``     rate-1/2 LDPC FEC + retransmission until every codeword
+             decodes; ``simulate_fec=False`` swaps the real min-sum chain
+             for the calibrated analytic model (exact bits, E[tx] from
+             ``latency.calibrate_ecrt``).
+
+``naive``/``approx`` run either on the fused CUDA kernels
+(``use_kernel=True``: K0 for one client, K1 for a batch, K2 for the fused
+aggregate) or on the layered PHY (``use_kernel=False``, the default): the
+reference's ``float_codec -> modulation -> channel -> demod`` chain as
+tensor operations, with the reference's ``threefry`` draws. Both run on
+the payload's device.
 
 The key schedule is the reference's: client ``i`` of a batch draws
-``fold_in(key, client_offset + i)`` (:func:`client_keys`), and each
-client's kernel seed is ``randint(key_i, (), 0, int32 max)``, so the
-port's channel realizations are the reference's, draw for draw.
+``fold_in(key, client_offset + i)`` (:func:`client_keys`). On the kernel
+path each client's kernel seed is ``randint(key_i, (), 0, int32 max)``; on
+the layered path each client's fading and noise come from ``key_i`` as
+``channel.transmit`` draws them, so the port's channel realizations are
+the reference's, draw for draw. The reference's batch path is a vmap of
+:func:`transmit_flat`; here every path is written over a batch of keys,
+and :func:`transmit_flat` is the batch of one, so a batch row equals the
+single-client call bit for bit.
 
 Pytrees are dicts of tensors (nested dicts allowed). They flatten in
 ``jax.tree_util.tree_flatten`` order — dict keys sorted — so every float
-lands in the same tile, and so gets the same RNG draws, as in the
-reference. Parameters keep the reference's layout (FC weights are
+lands in the same tile and symbol slot, and so gets the same draws, as in
+the reference. Parameters keep the reference's layout (FC weights are
 ``(in, out)``).
-
-Not ported yet (they raise ``NotImplementedError``): ``use_kernel=False``
-on ``naive``/``approx`` (the layered PHY of ``core/channel.py::transmit``
-and ``core/modulation.py::demod_hard``) and ``mode="ecrt"``.
 """
 
 from __future__ import annotations
@@ -31,6 +44,8 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import channel as channel_lib
+from repro_torch.core import ecrt as ecrt_lib
+from repro_torch.core import float_codec as fc
 from repro_torch.core import keylanes
 from repro_torch.core import modulation as mod_lib
 from repro_torch.core import prng
@@ -41,36 +56,41 @@ __all__ = [
     "TxStats",
     "client_keys",
     "transmit_flat",
+    "transmit_pytree",
     "transmit_batch",
     "transmit_pytree_batch",
     "transmit_batch_aggregate",
     "transmit_pytree_batch_aggregate",
 ]
 
-_LAYERED_PHY = ("use_kernel=False on naive/approx (the layered PHY of "
-                "core/channel.py::transmit and core/modulation.py::demod_hard) "
-                "is not ported yet: ROADMAP Queue 1, item 1 'Layered PHY'")
-_ECRT = ("mode='ecrt' (LDPC + retransmission) is not ported yet: ROADMAP "
-         "Queue 1, item 2 'ECRT, latency, bounds'")
+_MODES = ("perfect", "naive", "approx", "ecrt")
 
 
 @dataclasses.dataclass(frozen=True)
 class TransportConfig:
-    """One uplink transport: wire mode, modulation and channel.
+    """One uplink transport: wire mode, modulation, channel, and FEC knobs.
 
-    The fields are the reference's that the kernel path reads; the layered
-    PHY's ``interleave``/``chunk_elems`` and the ECRT knobs (``ldpc``,
-    ``max_tx``, ``simulate_fec``, ``ecrt_expected_tx``) come with those
-    paths.
+    The reference's fields at its defaults. The kernel path ignores
+    ``interleave`` and ``chunk_elems`` (its interleave is fixed, per tile),
+    as the reference does.
     """
 
     mode: str = "approx"  # perfect | naive | approx | ecrt
     modulation: str = "qpsk"
     channel: channel_lib.ChannelConfig = dataclasses.field(
         default_factory=channel_lib.ChannelConfig)
+    interleave: bool = True
     clamp_bound: float = 2.0  # paper: |g| < 2 -> clear bit 30 only
     wire_dtype: str = "float32"  # "float32" (paper) or "bfloat16"
-    use_kernel: bool = False  # route through the fused CUDA kernels
+    # Process the layered payload in chunks of this many floats (0 = whole
+    # payload); chunk i of a client draws from fold_in(client key, i).
+    chunk_elems: int = 0
+    ldpc: ecrt_lib.LdpcCode = dataclasses.field(
+        default_factory=ecrt_lib.LdpcCode)
+    max_tx: int = 8  # ECRT retransmission cap
+    simulate_fec: bool = True
+    ecrt_expected_tx: float = 1.0  # analytic model (calibrated; see latency)
+    use_kernel: bool = False  # route naive/approx through the CUDA kernels
 
     @property
     def scheme(self) -> mod_lib.ModScheme:
@@ -114,13 +134,8 @@ def _stats(data_symbols, transmissions, bit_errors, n_bits, bits_on_air=None,
 
 
 def _check_mode(cfg: TransportConfig) -> None:
-    """Raise for the modes this slice does not port."""
-    if cfg.mode == "ecrt":
-        raise NotImplementedError(_ECRT)
-    if cfg.mode in ("naive", "approx"):
-        if not cfg.use_kernel:
-            raise NotImplementedError(_LAYERED_PHY)
-    elif cfg.mode != "perfect":
+    """Raise ``ValueError`` for a mode the transport does not know."""
+    if cfg.mode not in _MODES:
         raise ValueError(f"unknown transport mode {cfg.mode!r}")
 
 
@@ -131,6 +146,199 @@ def _payload(x, device, ndim: int, name: str) -> torch.Tensor:
         raise ValueError(f"{name} wants a {ndim}-D payload; got "
                          f"{tuple(x.shape)}")
     return x
+
+
+def _through_channel(sym_stream: torch.Tensor, keys: torch.Tensor,
+                     cfg: TransportConfig, snr_vec=None):
+    """Symbol indices ``(C, S)`` -> Gray QAM -> channel -> zero-forcing
+    equalization: ``(y, c)``, complex64 ``(C, S)``."""
+    tx = mod_lib.modulate(sym_stream, cfg.scheme)
+    r, c = channel_lib.transmit(tx, keys, cfg.channel, snr_db=snr_vec)
+    return channel_lib.equalize(r, c), c
+
+
+def _wire_bits(cfg: TransportConfig) -> int:
+    return 16 if cfg.wire_dtype == "bfloat16" else 32
+
+
+def _equalized_stream(x: torch.Tensor, keys: torch.Tensor,
+                      cfg: TransportConfig, snr_vec):
+    """The uncoded pipeline up to the demod: ``(words (C, N), y (C, N*S))``
+    with the stream interleaved or not as ``cfg.interleave`` says."""
+    k, wb = cfg.scheme.bits_per_symbol, _wire_bits(cfg)
+    u = fc.bf16_to_bits(x) if wb == 16 else fc.f32_to_bits(x)
+    sym = fc.words_to_symbols(u, k, wb)  # (C, N, S)
+    stream = (fc.interleave(sym) if cfg.interleave
+              else sym.reshape(sym.shape[0], -1))
+    y, _ = _through_channel(stream, keys, cfg, snr_vec)
+    return u, y
+
+
+def _per_word(stream: torch.Tensor, n: int, cfg: TransportConfig):
+    """A received symbol stream ``(C, N*S)`` back to ``(C, N, S)``."""
+    s_per_word = _wire_bits(cfg) // cfg.scheme.bits_per_symbol
+    if cfg.interleave:
+        return fc.deinterleave(stream, n, s_per_word)
+    return stream.reshape(stream.shape[0], n, s_per_word)
+
+
+def _uncoded(x: torch.Tensor, keys: torch.Tensor, cfg: TransportConfig,
+             clamp: bool, snr_vec=None):
+    """naive/approx on the layered PHY for ``(C, N)`` payloads and keys
+    ``(C, 2)``: bits -> QAM -> channel -> bits, per-client stats."""
+    k, wb = cfg.scheme.bits_per_symbol, _wire_bits(cfg)
+    c, n = x.shape
+    u, y = _equalized_stream(x, keys, cfg, snr_vec)
+    rx = _per_word(mod_lib.demod_hard(y, cfg.scheme), n, cfg)
+    del y
+    u_hat = fc.symbols_to_words(rx, k, wb)
+    if clamp:
+        u_hat = (fc.clamp_exponent_bits16(u_hat, cfg.clamp_bound) if wb == 16
+                 else fc.clamp_exponent_bits(u_hat, cfg.clamp_bound))
+    # Post-clamp discrepancies against the true words: the clamp only
+    # lowers the count, since the true exponent MSB is 0.
+    bit_errors = mod_lib.popcount(u ^ u_hat).sum(dim=-1)
+    out = (fc.bits_to_bf16(u_hat).to(torch.float32) if wb == 16
+           else fc.bits_to_f32(u_hat))
+    return out, _batch_stats(c, n * (wb // k), 1, bit_errors, n * wb,
+                             n * wb, device=x.device)
+
+
+def _word_margins(x: torch.Tensor, keys: torch.Tensor, cfg: TransportConfig,
+                  snr_vec=None) -> torch.Tensor:
+    """Per-word decision margin ``(C, N)`` of the layered uplink: the least
+    :func:`~repro_torch.core.modulation.decision_margin` over the word's
+    symbols. A received word may differ from another implementation's only
+    where this is within that implementation's rounding of 0."""
+    c, n = x.shape
+    if cfg.chunk_elems and n > cfg.chunk_elems:
+        xc, kc, sc, _ = _chunk_view(x, keys, cfg.chunk_elems, snr_vec)
+        return _word_margins(xc, kc, dataclasses.replace(cfg, chunk_elems=0),
+                             sc).reshape(c, -1)[:, :n]
+    _, y = _equalized_stream(x, keys, cfg, snr_vec)
+    m = _per_word(mod_lib.decision_margin(y, cfg.scheme), n, cfg)
+    return m.amin(dim=-1)
+
+
+def _chunk_view(x: torch.Tensor, keys: torch.Tensor, chunk: int, snr_vec):
+    """``(C, N)`` payloads as ``(C * n_chunks, chunk)`` rows (zero-padded),
+    with chunk ``i`` of client ``c`` keyed ``fold_in(keys[c], i)``."""
+    c, n = x.shape
+    xp = torch.nn.functional.pad(x, (0, (-n) % chunk))
+    n_chunks = xp.shape[1] // chunk
+    # chunk indices ride the client-space chunk lane of the client key
+    keylanes.check_range(0, n_chunks, space="client")
+    idx = torch.arange(n_chunks, dtype=torch.int64, device=keys.device)
+    kc = prng.fold_in(keys[:, None, :], idx).reshape(-1, 2)
+    sc = None if snr_vec is None else snr_vec.repeat_interleave(n_chunks)
+    return xp.reshape(-1, chunk), kc, sc, n_chunks
+
+
+def _uncoded_chunked(x: torch.Tensor, keys: torch.Tensor,
+                     cfg: TransportConfig, clamp: bool, snr_vec=None):
+    """:func:`_uncoded` over fixed-size chunks of each payload (bounds the
+    live set); stats cover the true payload only."""
+    c, n = x.shape
+    xc, kc, sc, n_chunks = _chunk_view(x, keys, cfg.chunk_elems, snr_vec)
+    x_hat, st = _uncoded(xc, kc, cfg, clamp, sc)
+    x_hat = x_hat.reshape(c, -1)
+    # The transmitted pad words are exactly 0, so every set bit in a
+    # received pad word was counted as an error: subtract them.
+    wb, k = _wire_bits(cfg), cfg.scheme.bits_per_symbol
+    pad = x_hat[:, n:]
+    pad_bits = (fc.bf16_to_bits(pad) if wb == 16 else fc.f32_to_bits(pad))
+    pad_errs = mod_lib.popcount(pad_bits).sum(dim=-1)
+    chunk_errs = st.bit_errors.reshape(c, n_chunks).sum(dim=-1)
+    return x_hat[:, :n], _batch_stats(
+        c, n * (wb // k), 1, chunk_errs - pad_errs, n * wb, n * wb,
+        device=x.device)
+
+
+def _ecrt_real(x: torch.Tensor, keys: torch.Tensor, cfg: TransportConfig,
+               snr_vec=None):
+    """Real LDPC + retransmission for ``(C, N)`` payloads: up to ``max_tx``
+    transmissions, transmission ``t`` of client ``c`` drawn from
+    ``split(keys[c], max_tx)[t]``; a codeword is taken from the first
+    transmission that decodes, and codewords still failing after
+    ``max_tx`` fall back to the genie (counted)."""
+    code = cfg.ldpc
+    c, n_words = x.shape
+    dev = x.device
+    u = fc.f32_to_bits(x)
+    shifts = 31 - torch.arange(32, dtype=torch.int64, device=dev)
+    bits = ((u[..., None] >> shifts) & 1).reshape(c, -1)
+    n_bits = bits.shape[1]
+    bits_p = torch.nn.functional.pad(bits, (0, (-n_bits) % code.k))
+    cw = ecrt_lib.encode(bits_p.reshape(c, -1, code.k), code)  # (C, n_cw, n)
+    n_cw, n_code = cw.shape[1], cw.shape[2]
+    k_mod = cfg.scheme.bits_per_symbol
+    if n_code % k_mod:
+        raise ValueError(f"codeword length {n_code} is not a multiple of "
+                         f"bits_per_symbol={k_mod}")
+    sym_per_cw = n_code // k_mod
+    weights = 1 << (k_mod - 1 - torch.arange(k_mod, device=dev))
+    sym = (cw.reshape(c, n_cw, sym_per_cw, k_mod) * weights).sum(-1)
+    sym = sym.reshape(c, -1)
+    tx_keys = prng.fold_in(keys[:, None, :],
+                           torch.arange(cfg.max_tx, device=keys.device))
+    decoded = torch.zeros_like(cw)
+    ok = torch.zeros((c, n_cw), dtype=torch.bool, device=dev)
+    tx_count = torch.zeros((c, n_cw), dtype=torch.int64, device=dev)
+    for t in range(cfg.max_tx):
+        if bool(ok.all()):
+            break  # the reference's later rounds change nothing from here
+        y, cc = _through_channel(sym, tx_keys[:, t], cfg, snr_vec)
+        nv = channel_lib.noise_var_post_eq(cc, cfg.channel, snr_db=snr_vec)
+        llr = mod_lib.bit_llrs(y, nv, cfg.scheme).reshape(c, n_cw, n_code)
+        pend = ~ok
+        hard, ok_pend = ecrt_lib.decode(llr[pend], code)
+        take = torch.zeros_like(ok)
+        take[pend] = ok_pend
+        decoded[take] = hard[ok_pend]
+        tx_count += pend
+        ok |= take
+    decoded = torch.where(ok[..., None], decoded, cw)  # genie fallback
+    info = decoded[..., :code.k].reshape(c, -1)[:, :n_bits]
+    u_hat = (info.reshape(c, n_words, 32) << shifts).sum(-1)
+    bit_errors = mod_lib.popcount(u ^ u_hat).sum(-1)
+    total_tx = tx_count.sum(-1)
+    # XLA turns the reference's mean over a constant count into a multiply
+    # by its float32 reciprocal: so does this.
+    mean_tx = total_tx.to(torch.float32) * (1.0 / n_cw)
+    return fc.bits_to_f32(u_hat), _batch_stats(
+        c, total_tx * sym_per_cw, mean_tx, bit_errors, n_words * 32,
+        total_tx * sym_per_cw * k_mod, device=dev)
+
+
+def _ecrt_analytic(x: torch.Tensor, cfg: TransportConfig):
+    """Calibrated ECRT model: exact bits, ``cfg.ecrt_expected_tx``
+    transmissions. SNR-blind by construction (one constant calibrated for
+    one link quality); the engine rescales per-client airtime instead."""
+    c, n_words = x.shape
+    n_bits = n_words * 32
+    coded_bits = 2 * n_bits  # rate 1/2
+    sym = coded_bits / cfg.scheme.bits_per_symbol * cfg.ecrt_expected_tx
+    return x, _batch_stats(c, sym, cfg.ecrt_expected_tx, 0, n_bits,
+                           coded_bits * cfg.ecrt_expected_tx, device=x.device)
+
+
+def _batch_stats(c: int, data_symbols, transmissions, bit_errors, n_bits,
+                 bits_on_air, *, device) -> TxStats:
+    """:class:`TxStats` with ``(c,)`` float32 fields from scalars or
+    per-client tensors."""
+    def f(v):
+        t = torch.as_tensor(v, device=device).to(torch.float32)
+        return t.expand(c) if t.ndim == 0 else t
+
+    return TxStats(f(data_symbols), f(transmissions), f(bit_errors),
+                   f(n_bits), bits_on_air=f(bits_on_air))
+
+
+def _row(stats: TxStats, i: int) -> TxStats:
+    """Client ``i``'s scalar stats of a batch."""
+    return TxStats(stats.data_symbols[i], stats.transmissions[i],
+                   stats.bit_errors[i], stats.n_bits[i],
+                   bits_on_air=stats.bits_on_air[i])
 
 
 def transmit_flat(x, key: torch.Tensor, cfg: TransportConfig, *, snr_db=None,
@@ -150,13 +358,35 @@ def transmit_flat(x, key: torch.Tensor, cfg: TransportConfig, *, snr_db=None,
     _check_mode(cfg)
     x = _payload(x, device, 1, "transmit_flat")
     n = x.shape[0]
-    wb = 16 if cfg.wire_dtype == "bfloat16" else 32
+    wb = _wire_bits(cfg)
     k = cfg.scheme.bits_per_symbol
     if cfg.mode == "perfect":
         return x, _stats(n * wb // k, 1, 0, n * wb, n * wb, device=x.device)
-    from repro_torch.kernels import ops as kernel_ops
+    if cfg.mode in ("naive", "approx") and cfg.use_kernel:
+        from repro_torch.kernels import ops as kernel_ops
 
-    return kernel_ops.approx_channel_transmit(x, key, cfg, snr_db=snr_db)
+        return kernel_ops.approx_channel_transmit(x, key, cfg, snr_db=snr_db)
+    snr_vec = (None if snr_db is None
+               else channel_lib.snr_db_vector(snr_db, 1, x.device))
+    x_hat, stats = _batch_with_keys(x[None], key.reshape(1, 2), cfg, snr_vec)
+    return x_hat[0], _row(stats, 0)
+
+
+def transmit_pytree(tree, key: torch.Tensor, cfg: TransportConfig, *,
+                    device=None):
+    """Transmit every leaf of a (nested) dict of tensors as one flat uplink
+    payload, leaves in sorted-key order; returns ``(tree_hat, stats)`` with
+    shapes and dtypes restored."""
+    leaves, spec = tree_flatten(tree)
+    flat = torch.cat([torch.as_tensor(l).reshape(-1).to(torch.float32)
+                      for l in leaves])
+    flat_hat, stats = transmit_flat(flat, key, cfg, device=device)
+    out, off = [], 0
+    for leaf in leaves:
+        size = leaf.numel()
+        out.append(flat_hat[off:off + size].reshape(leaf.shape).to(leaf.dtype))
+        off += size
+    return tree_unflatten(spec, out), stats
 
 
 def client_keys(key: torch.Tensor, num_clients: int, offset: int = 0):
@@ -181,25 +411,35 @@ def _resolve_batch_snr(cfg: TransportConfig, num_clients: int, snr_db,
 
 def _batch_with_keys(x: torch.Tensor, keys: torch.Tensor,
                      cfg: TransportConfig, snr_vec):
-    """Single-mode batch over explicit per-client keys."""
+    """Single-mode batch over explicit per-client keys ``(C, 2)``, in the
+    reference's dispatch order: perfect, the kernel path, the chunked and
+    whole layered PHY, ECRT real or analytic."""
+    c, n = x.shape
     if cfg.mode == "perfect":
-        c, n = x.shape
-        wb = 16 if cfg.wire_dtype == "bfloat16" else 32
-        k = cfg.scheme.bits_per_symbol
-        full = lambda v: torch.full((c,), float(v), dtype=torch.float32,
-                                    device=x.device)
-        return x, TxStats(full(n * wb // k), full(1), full(0), full(n * wb),
-                          bits_on_air=full(n * wb))
-    from repro_torch.kernels import ops as kernel_ops
+        wb, k = _wire_bits(cfg), cfg.scheme.bits_per_symbol
+        return x, _batch_stats(c, n * wb // k, 1, 0, n * wb, n * wb,
+                               device=x.device)
+    if cfg.mode in ("naive", "approx") and cfg.use_kernel:
+        from repro_torch.kernels import ops as kernel_ops
 
-    return kernel_ops.approx_channel_transmit_batch(x, keys, cfg, snr_vec)
+        return kernel_ops.approx_channel_transmit_batch(x, keys, cfg, snr_vec)
+    keys = keys.to(x.device)  # every draw of these paths is per symbol
+    if cfg.mode in ("naive", "approx"):
+        clamp = cfg.mode == "approx"
+        if cfg.chunk_elems and n > cfg.chunk_elems:
+            return _uncoded_chunked(x, keys, cfg, clamp, snr_vec)
+        return _uncoded(x, keys, cfg, clamp, snr_vec)
+    if cfg.simulate_fec:
+        return _ecrt_real(x, keys, cfg, snr_vec)
+    return _ecrt_analytic(x, cfg)
 
 
 def transmit_batch(x, key: torch.Tensor, cfg: TransportConfig, *,
                    snr_db=None, client_offset: int = 0, device=None):
     """Transmit ``num_clients`` payloads through independent fading uplinks.
 
-    One K1 launch on the kernel path. Client ``i`` uses
+    One K1 launch on the kernel path; one batched pass of the layered PHY
+    (or the ECRT chain) otherwise. Client ``i`` uses
     ``fold_in(key, client_offset + i)``, so the result equals a loop of
     :func:`transmit_flat` over that schedule.
 
@@ -244,7 +484,7 @@ def _scan_weighted_sum(rows: torch.Tensor, weights, num_active=None):
 def _batch_aggregate_with_keys(x, keys, cfg, snr_vec, weights):
     """Single-mode batch + weighted aggregation over explicit keys: K2 on
     the kernel path, the client-order sum over the batch otherwise."""
-    if cfg.mode in ("naive", "approx"):
+    if cfg.mode in ("naive", "approx") and cfg.use_kernel:
         from repro_torch.kernels import ops as kernel_ops
 
         return kernel_ops.approx_channel_transmit_batch_aggregate(

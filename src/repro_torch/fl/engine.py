@@ -1,19 +1,25 @@
-"""FL round engine (port, part): FedSGD rounds over the approximate uplink.
+"""FL round engine (port, part): FedSGD rounds over the wireless uplink.
 
 Counterpart of ``repro.fl.engine`` for the driverless path of
 :class:`RoundEngine` with the :class:`FedSGD` algorithm — the paper's own
 experiment — in both of its round shapes:
 
 * **layered** (``fused_aggregate=False``): per-client gradients ->
-  ``transport.transmit_pytree_batch`` (one K1 launch on the kernel path)
-  -> mean over clients -> SGD step;
+  ``transport.transmit_pytree_batch`` (one K1 launch on the kernel path,
+  the layered PHY or the ECRT model otherwise) -> mean over clients -> SGD
+  step;
 * **fused** (``fused_aggregate=True``): per-client gradients ->
   ``transport.transmit_pytree_batch_aggregate`` with uniform normalized
-  weights (one K2 launch) -> SGD step.
+  weights (one K2 launch on the kernel path) -> SGD step.
 
 Each round mirrors the reference as written: the layered round averages
 with a mean over the client axis (a reduction whose order PyTorch does not
 share with XLA), the fused round with the client-order sum of K2.
+
+ECRT with ``simulate_fec=True`` is priced, not decoded, in rounds, as in
+the reference: :func:`resolve_ecrt_analytic` calibrates E[tx] once with
+the real LDPC chain and swaps in the analytic model; a heterogeneous-SNR
+cohort also gets a per-client airtime scale.
 
 The key schedule is the reference's: ``key -> (key, params key)`` at
 start, then ``key -> (key, round key)`` each round; minibatches come from
@@ -24,13 +30,15 @@ host clock after a device synchronise (``FLResult.phase_s``), so the
 numbers are device time for the phase, not enqueue time. The uplink also
 reports two of its parts, timed as spans (``repro_torch.obs.spans``):
 ``uplink_keys``, the per-client key schedule and kernel seeds, and
-``uplink_kernel``, the K1/K2 launch (or its plain version on the CPU).
+``uplink_kernel``, the K1/K2 launch (or its plain version on the CPU; 0 on
+the layered PHY and ECRT, which launch no kernel).
 
 The round key stays on the CPU, so the key schedule (a few hundred int64
 ops on ``num_clients`` elements) runs on the host and only the seeds
 cross to the device: each op costs less there than a launch on the GPU
 (measured by ``chip_smoke.py``, phase 6; see PERF.md). ``prng`` follows
-its key's device, so moving the key moves the schedule.
+its key's device, so moving the key moves the schedule; the layered PHY
+moves the client keys to the payload's device, where it draws per symbol.
 
 Not ported yet (raise ``NotImplementedError`` naming the ROADMAP item):
 ``scenario=``, ``downlink=``, ``compression=``, ``ledger=``,
@@ -56,7 +64,7 @@ from repro_torch.fl import cnn
 from repro_torch.obs import spans
 from repro_torch.optim.sgd import sgd as make_sgd
 
-__all__ = ["FLResult", "FedSGD", "RoundEngine"]
+__all__ = ["FLResult", "FedSGD", "RoundEngine", "resolve_ecrt_analytic"]
 
 _NOT_PORTED = {
     "scenario": "ROADMAP Queue 1, item 4 'Link adaptation'",
@@ -81,6 +89,34 @@ class FLResult:
     # and "eval" (0.0 on rounds without an eval), each closed by a device
     # synchronise; "uplink_keys" and "uplink_kernel" are parts of "uplink".
     phase_s: list = dataclasses.field(default_factory=list)
+
+
+def resolve_ecrt_analytic(transport_cfg, num_clients: int, device=None):
+    """Swap real-FEC ECRT for the calibrated analytic model in an FL loop.
+
+    The real decoder inside every round would only re-measure a constant:
+    calibrate instead, with the shared pricing budget
+    (``latency.DEFAULT_CALIB_CODEWORDS``/``_MAX_TX``), on ``device``.
+    Heterogeneous cohorts get E[tx] per client (``ecrt_expected_tx_profile``),
+    the cohort mean drives the transport constant, and the per-client ratio
+    comes back as a ``(num_clients,)`` airtime scale (the analytic model is
+    linear in E[tx]). Returns ``(transport_cfg, air_scale_or_None)``.
+    """
+    if not (transport_cfg.mode == "ecrt" and transport_cfg.simulate_fec):
+        return transport_cfg, None
+    snr_vec = np.asarray(transport_cfg.channel.snr_db, np.float32).reshape(-1)
+    e_tx = latency_lib.ecrt_expected_tx_profile(
+        snr_vec, transport_cfg.modulation,
+        n_codewords=latency_lib.DEFAULT_CALIB_CODEWORDS,
+        max_tx=latency_lib.DEFAULT_CALIB_MAX_TX, device=device)
+    e_mean = float(e_tx.mean())
+    transport_cfg = dataclasses.replace(
+        transport_cfg, simulate_fec=False, ecrt_expected_tx=e_mean)
+    air_scale = None
+    if e_tx.size == num_clients and e_tx.size > 1:
+        air_scale = torch.from_numpy(e_tx / np.float32(e_mean)).to(
+            resolve_device(device))
+    return transport_cfg, air_scale
 
 
 class FedSGD:
@@ -160,6 +196,9 @@ class RoundEngine:
         transport_lib._check_mode(transport_cfg)
         self.device = resolve_device(device)
         self.algo = algorithm
+        self.num_clients = client_x.shape[0]
+        transport_cfg, self.ecrt_air_scale = resolve_ecrt_analytic(
+            transport_cfg, self.num_clients, self.device)
         self.transport_cfg = transport_cfg
         self.client_x, self.client_y = client_x, client_y
         self.test_x = torch.as_tensor(test_x).to(self.device)
@@ -169,7 +208,6 @@ class RoundEngine:
         self.seed = seed
         self.eval_every = eval_every
         self.timings = timings or latency_lib.PhyTimings()
-        self.num_clients = client_x.shape[0]
         self.fused_aggregate = bool(fused_aggregate)
         # Uniform cohort weights, normalized once (the reference's
         # build-time constant of the fused round).
@@ -223,6 +261,10 @@ class RoundEngine:
             # TDMA uplink: total airtime is the sum over clients.
             per_client_air = latency_lib.round_airtime(
                 stats, self.timings, self.transport_cfg.mode)
+            if self.ecrt_air_scale is not None:
+                # Heterogeneous analytic ECRT: rescale each client's
+                # airtime from the cohort-mean E[tx] to its own value.
+                per_client_air = per_client_air * self.ecrt_air_scale
             cum_air += float(torch.sum(per_client_air))
             if r % self.eval_every == 0 or r == self.n_rounds - 1:
                 t4 = time.perf_counter()

@@ -3,10 +3,16 @@
 One round (paper Sec. II):
   1. every client computes a single-step gradient on its local shard (4)
   2. the stacked (M, D) gradients go through the batched uplink — M
-     independent fading channels, one K1 launch (or one K2 launch with
-     ``fused_aggregate=True``, which also aggregates)
+     independent fading channels: the layered PHY, or with
+     ``use_kernel=True`` one K1 launch (one K2 launch with
+     ``fused_aggregate=True``, which also aggregates); ECRT is priced by
+     its calibrated analytic model
   3. the PS aggregates (5) and updates the global model (6)
   4. airtime for the round = the TDMA sum of the clients' uplinks
+
+The paper's Fig. 3 compares three arms at one SNR: ``approx`` and
+``naive`` on the layered PHY, and ``ecrt`` (``simulate_fec=True``, which
+the engine resolves to the calibrated analytic model).
 
 Counterpart of ``repro.fl.loop.run_fl``: a thin façade over
 :class:`~repro_torch.fl.engine.RoundEngine` with :class:`FedSGD`.
@@ -49,8 +55,8 @@ def run_fl(
 
     Args mirror the reference's ``run_fl``:
       cfg: CNN model/optimizer config (``configs.mnist_cnn``).
-      transport_cfg: uplink transport (``perfect``, or ``naive``/``approx``
-        with ``use_kernel=True``).
+      transport_cfg: uplink transport (``perfect``, ``naive``, ``approx``
+        or ``ecrt``).
       client_x / client_y: stacked per-client shards, ``(M, n, ...)``.
       test_x / test_y: held-out eval set (accuracy every ``eval_every``).
       n_rounds / batch_per_round / seed: round count, per-round minibatch

@@ -147,10 +147,8 @@ def _link_params(cfg, c: int, snr_db, device):
 def _batch_stats(c: int, n: int, wb: int, k: int, errs, device):
     from repro_torch.core import transport as transport_lib
 
-    ones = torch.ones((c,), dtype=torch.float32, device=device)
-    return transport_lib.TxStats(
-        ones * (n * (wb // k)), ones, errs.to(torch.float32), ones * (n * wb),
-        bits_on_air=ones * (n * wb))
+    return transport_lib._batch_stats(c, n * (wb // k), 1, errs, n * wb,
+                                      n * wb, device=device)
 
 
 def approx_channel_transmit_batch(x: torch.Tensor, keys: torch.Tensor, cfg,

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import float_codec as fc
+from repro_torch.core.modulation import popcount as _popcount
 from repro_torch.core.prng import M32, mul32
 
 __all__ = [
@@ -103,14 +104,6 @@ def gray_decode(g: torch.Tensor) -> torch.Tensor:
     for s in (1, 2, 4):
         g = g ^ (g >> s)
     return g
-
-
-def _popcount(x: torch.Tensor) -> torch.Tensor:
-    """Set bits of ``uint32`` values held in ``int64``."""
-    x = x - ((x >> 1) & 0x55555555)
-    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
-    x = (x + (x >> 4)) & 0x0F0F0F0F
-    return ((x * 0x01010101) & M32) >> 24
 
 
 def _axis_level(y: torch.Tensor, inv: float, L: int):

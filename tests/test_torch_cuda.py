@@ -10,6 +10,14 @@ K1 and K2 must match their plain versions bit for bit: payload words,
 error counts and the aggregate. Words may differ only where a demod
 pre-round value lies within ``EDGE`` of a half-integer; the noiseless row
 must match exactly.
+
+The layered PHY and the ECRT chain, which launch no kernel, are held
+against themselves on the CPU: the layered batch under the same edge rule
+with the tolerance of ``layered_edge`` (its normals, ``torch.erfinv``, are
+the one step that may round differently on the card), a batch row against
+the single-client call bit for bit on the card, and LDPC encode, syndrome
+and min-sum posteriors bit for bit (integer work, and float work whose
+every step is one IEEE operation in a fixed order).
 """
 
 import numpy as np
@@ -291,3 +299,117 @@ def test_key_schedule_on_card_equals_cpu(cuda_device, c):
             want = (keys, seeds)
     assert torch.equal(keys.cpu(), want[0])
     assert torch.equal(seeds.cpu(), want[1])
+
+
+def layered_edge(levels):
+    """Decision margin within which a layered-PHY word may differ between
+    devices: normals agree to 128 ULP, so a pre-round value inside the
+    grid (``|y/a| <= 2L``) moves by at most ``L * 3.1e-5``; this doubles
+    it."""
+    return levels * 2.0**-14
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["naive", "approx"])
+@pytest.mark.parametrize("wire", ["float32", "bfloat16"])
+@pytest.mark.parametrize("fading", ["rayleigh", "awgn", "block_rayleigh"])
+@pytest.mark.parametrize("mod", ["qpsk", "16qam", "256qam"])
+def test_layered_batch_card_vs_cpu(cuda_device, mod, fading, wire, mode):
+    from repro_torch.core import prng as P
+
+    c, n = 4, 1024
+    x = torch.rand((c, n), generator=torch.Generator().manual_seed(3))
+    x = x * 1.8 - 0.9
+    snr = (float("inf"), 10.0, 20.0, 5.0)  # row 0 noiseless: Exact
+    cfg = TT.TransportConfig(
+        mode=mode, modulation=mod, wire_dtype=wire,
+        channel=TCH.ChannelConfig(snr_db=snr, fading=fading))
+    key = P.PRNGKey(21)
+    xg, sg = TT.transmit_batch(x, key, cfg, device=cuda_device)
+    xc, sc = TT.transmit_batch(x, key, cfg, device="cpu")
+    xg = xg.cpu()
+    diff = (_bits(xg) != _bits(xc)) & ~(torch.isnan(xg) & torch.isnan(xc))
+    assert not diff[0].any()
+    for f in ("data_symbols", "transmissions", "n_bits", "bits_on_air"):
+        assert torch.equal(getattr(sg, f).cpu(), getattr(sc, f))
+    if diff.any():
+        margins = TT._word_margins(x, TT.client_keys(key, c), cfg,
+                                   TCH.snr_db_vector(snr, c))
+        levels = TT.TransportConfig(modulation=mod).scheme.levels
+        assert float(margins[diff].max()) < layered_edge(levels)
+    else:
+        assert torch.equal(sg.bit_errors.cpu(), sc.bit_errors)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [0, 300])
+@pytest.mark.parametrize("mode", ["approx", "ecrt"])
+def test_batch_row_equals_flat_on_card(cuda_device, mode, chunk):
+    from repro_torch.core import prng as P
+
+    x = torch.rand((3, 700), generator=torch.Generator().manual_seed(4)) - 0.5
+    cfg = TT.TransportConfig(mode=mode, chunk_elems=chunk,
+                             channel=TCH.ChannelConfig(snr_db=3.0))
+    key = P.PRNGKey(22)
+    xb, sb = TT.transmit_batch(x, key, cfg, device=cuda_device)
+    for c in range(3):
+        xf, sf = TT.transmit_flat(x[c], P.fold_in(key, c), cfg,
+                                  device=cuda_device)
+        assert torch.equal(_bits(xf), _bits(xb[c]))
+        for f in ("data_symbols", "transmissions", "bit_errors", "n_bits",
+                  "bits_on_air"):
+            assert torch.equal(getattr(sf, f), getattr(sb, f)[c])
+
+
+@pytest.mark.cuda
+def test_ecrt_encode_decode_card_vs_cpu(cuda_device):
+    from repro_torch.core import ecrt as TE
+    from repro_torch.core import prng as P
+
+    code = TE.LdpcCode()
+    msgs = P.randint(P.PRNGKey(23), (6, code.k), 0, 2)
+    cw = TE.encode(msgs, code)
+    cw_g = TE.encode(msgs.to(cuda_device), code)
+    assert torch.equal(cw_g.cpu(), cw)
+    assert bool(TE.syndrome_ok(cw_g, code).all())
+    rng = np.random.default_rng(5)
+    llr = (1.0 - 2.0 * cw.numpy()) * 2.0 + rng.standard_normal(cw.shape) * 2
+    llr = torch.from_numpy(llr.astype(np.float32))
+    post = TE._minsum_posterior(llr, code)
+    post_g = TE._minsum_posterior(llr.to(cuda_device), code).cpu()
+    assert torch.equal(_bits(post_g), _bits(post))
+    hard_g, ok_g = TE.decode(llr.to(cuda_device), code)
+    hard, ok = TE.decode(llr, code)
+    assert torch.equal(hard_g.cpu(), hard) and torch.equal(ok_g.cpu(), ok)
+
+
+@pytest.mark.cuda
+def test_ecrt_real_on_card_returns_payload(cuda_device):
+    from repro_torch.core import prng as P
+
+    x = torch.randn((2, 300), generator=torch.Generator().manual_seed(6))
+    cfg = TT.TransportConfig(mode="ecrt", channel=TCH.ChannelConfig(
+        snr_db=3.0, fading="block_rayleigh"))
+    xg, sg = TT.transmit_batch(x, P.PRNGKey(24), cfg, device=cuda_device)
+    xc, sc = TT.transmit_batch(x, P.PRNGKey(24), cfg, device="cpu")
+    assert torch.equal(xg.cpu(), x) and torch.equal(xc, x)
+    assert bool((sg.transmissions >= 1).all())
+    assert not sg.bit_errors.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["approx", "naive", "ecrt"])
+def test_fig3_arms_launch_no_kernel(cuda_device, mode):
+    from repro_torch.configs.mnist_cnn import config
+    from repro_torch.fl.loop import run_fl
+
+    rng = np.random.default_rng(0)
+    cx = rng.uniform(0, 1, (4, 16, 28, 28)).astype(np.float32)
+    cy = rng.integers(0, 10, (4, 16)).astype(np.int32)
+    cfg = TT.TransportConfig(mode=mode, channel=TCH.ChannelConfig(snr_db=10.0))
+    TAC.reset_launch_counts()
+    res = run_fl(config(), cfg, cx, cy, cx[0], cy[0], n_rounds=2,
+                 batch_per_round=8, eval_every=1)
+    assert TAC.launch_counts() == {"k0": 0, "k1": 0, "k2": 0}
+    assert all(np.isfinite(res.accuracy))
+    assert all(np.isfinite(res.airtime_s))

@@ -13,6 +13,9 @@
   differ by a few ULP (``prng.normal``) and gradients by summation order,
   so accuracy may differ by at most ``ACC_TOL`` (2 of 160 test images)
   at each eval point; airtime is exact up to float32 summation order.
+  The same holds for the paper's Fig. 3 arms — approx and naive on the
+  layered PHY, ECRT resolved by the engine to its calibrated analytic
+  model — given equal E[tx] (asserted).
 """
 
 import dataclasses
@@ -30,6 +33,7 @@ from repro.core import channel as JCH  # noqa: E402
 from repro.core import transport as JT  # noqa: E402
 from repro.data import synth_mnist as j_synth  # noqa: E402
 from repro.fl import cnn as JC  # noqa: E402
+from repro.fl import engine as JEN  # noqa: E402
 from repro.fl import partition as j_partition  # noqa: E402
 from repro.fl.loop import run_fl as j_run_fl  # noqa: E402
 from repro.optim.sgd import sgd as j_sgd  # noqa: E402
@@ -51,6 +55,16 @@ ACC_TOL = 2 / 160 + 1e-6
 def partitionable():
     with jax.threefry_partitionable(True):
         yield
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: the suite runs files in parallel workers, and
+    tensor ops split over every core stall each other there."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -186,3 +200,58 @@ def test_fused_equals_layered_in_port(world):
     b = t_run_fl(cfg, tc, cx, cy, ti, tl, fused_aggregate=True, **kw)
     np.testing.assert_allclose(a.accuracy, b.accuracy, atol=ACC_TOL)
     assert a.airtime_s == b.airtime_s
+
+
+@pytest.mark.parametrize("mode", ["approx", "naive", "ecrt"])
+def test_fig3_arms_vs_reference(world, mode):
+    """The paper's Fig. 3 comparison on the 4-client world: accuracy within
+    ``ACC_TOL`` at every eval point, airtime to float32 rounding."""
+    cx, cy, ti, tl = world
+    kw = dict(n_rounds=3, batch_per_round=8, eval_every=1, seed=3)
+    jc = JT.TransportConfig(mode=mode,
+                            channel=JCH.ChannelConfig(snr_db=10.0))
+    tc = TT.TransportConfig(mode=mode,
+                            channel=TCH.ChannelConfig(snr_db=10.0))
+    if mode == "ecrt":
+        rj, _ = JEN.resolve_ecrt_analytic(jc, 4)
+        rt, scale = TE.resolve_ecrt_analytic(tc, 4, "cpu")
+        assert (rt.simulate_fec, scale) == (False, None)
+        assert rt.ecrt_expected_tx == rj.ecrt_expected_tx > 1.0
+    a = j_run_fl(dataclasses.replace(j_config(), lr=0.1), jc, cx, cy, ti, tl,
+                 **kw)
+    b = t_run_fl(dataclasses.replace(t_config(), lr=0.1), tc, cx, cy, ti, tl,
+                 device="cpu", **kw)
+    assert a.rounds == b.rounds == [0, 1, 2]
+    print(f"{mode}: reference {a.accuracy}, port {b.accuracy}")
+    np.testing.assert_allclose(b.accuracy, a.accuracy, rtol=0, atol=ACC_TOL)
+    np.testing.assert_allclose(b.airtime_s, a.airtime_s, rtol=2**-20)
+
+
+def test_heterogeneous_ecrt_airtime_scale():
+    """Per-client SNR: E[tx] per client, the cohort mean in the transport,
+    the ratio as each client's airtime scale — the reference's."""
+    snr = (0.0, 0.0, 10.0, 10.0)
+    jc = JT.TransportConfig(mode="ecrt",
+                            channel=JCH.ChannelConfig(snr_db=snr))
+    tc = TT.TransportConfig(mode="ecrt",
+                            channel=TCH.ChannelConfig(snr_db=snr))
+    rj, sj = JEN.resolve_ecrt_analytic(jc, 4)
+    rt, st = TE.resolve_ecrt_analytic(tc, 4, "cpu")
+    assert rt.ecrt_expected_tx == rj.ecrt_expected_tx
+    np.testing.assert_array_equal(st.numpy(), np.asarray(sj))
+    assert float(st[0]) > 1.0 > float(st[2])
+    eng = TE.RoundEngine(TE.FedSGD(t_config()), tc, *_tiny_world(),
+                         n_rounds=1, device="cpu")
+    assert torch.equal(eng.ecrt_air_scale, st)
+    res = eng.run()
+    e = rt.ecrt_expected_tx
+    base = 2 * 21840 * 32 / 2 * e / 13e6 * 1.05 + e * 200e-6
+    want = float(np.sum(np.asarray(sj, np.float64))) * base
+    assert res.airtime_s[0] == pytest.approx(want, rel=2**-20)
+
+
+def _tiny_world():
+    rng = np.random.default_rng(0)
+    cx = rng.uniform(0, 1, (4, 8, 28, 28)).astype(np.float32)
+    cy = rng.integers(0, 10, (4, 8)).astype(np.int32)
+    return cx, cy, cx[0], cy[0]

@@ -38,6 +38,16 @@ C, N, BW = 3, 1024, 512
 SEEDS = np.array([7, 123456789, 4000000000], np.uint32)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: the suite runs files in parallel workers, and
+    tensor ops split over every core stall each other there."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _payload(word_bits, seed=0, c=C, n=N):
     x = np.random.default_rng(seed).uniform(-1, 1, (c, n)).astype(np.float32)
     if word_bits == 16:

@@ -5,8 +5,8 @@
   AST scan): all three run on a GPU machine without JAX.
 * Entry points run on the GPU unless asked for the CPU: without a GPU
   they raise, with ``device="cpu"`` they run.
-* Paths not ported yet raise ``NotImplementedError`` naming the ROADMAP
-  item.
+* Engine arguments not ported yet raise ``NotImplementedError`` naming
+  the ROADMAP item; an unknown transport mode raises ``ValueError``.
 """
 
 import ast
@@ -24,6 +24,16 @@ from repro_torch.core import prng as P  # noqa: E402
 from repro_torch.core import transport as TT  # noqa: E402
 from repro_torch.fl import engine as TE  # noqa: E402
 from repro_torch.fl.loop import run_fl  # noqa: E402
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: the suite runs files in parallel workers, and
+    tensor ops split over every core stall each other there."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -57,7 +67,8 @@ def test_port_imports_no_jax_or_reference(path):
 def test_port_covers_its_modules():
     names = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
              for p in PORT_FILES[:-2]}
-    for mod in ("core/prng.py", "core/transport.py", "kernels/ref.py",
+    for mod in ("core/prng.py", "core/transport.py", "core/ecrt.py",
+                "core/bounds.py", "core/latency.py", "kernels/ref.py",
                 "kernels/approx_channel.py", "kernels/ops.py",
                 "fl/engine.py", "fl/loop.py", "convert.py"):
         assert mod in names
@@ -107,24 +118,52 @@ def test_kernel_wrappers_reject_other_devices():
         ac.approx_channel_batch_kernel(x, s, f, f)
 
 
-@pytest.mark.parametrize("mode,kernel,match", [
-    ("approx", False, "Layered PHY"),
-    ("naive", False, "Layered PHY"),
-    ("ecrt", False, "ECRT"),
-    ("ecrt", True, "ECRT"),
+@pytest.mark.parametrize("mode,kernel", [
+    ("approx", False),
+    ("naive", False),
+    ("ecrt", False),
+    ("ecrt", True),
 ])
-def test_unported_modes_raise(mode, kernel, match):
-    cfg = TT.TransportConfig(mode=mode, use_kernel=kernel)
+def test_layered_and_ecrt_modes_run(mode, kernel):
+    """The four calls that raised before the layered PHY and ECRT were
+    ported: each runs and returns finite stats shaped as the reference's
+    (``(C,)`` fields for a batch, scalars for one client). ECRT ignores
+    ``use_kernel``, as in the reference."""
+    cfg = TT.TransportConfig(mode=mode, use_kernel=kernel,
+                             channel=TCH.ChannelConfig(snr_db=10.0))
+    x = torch.linspace(-0.5, 0.5, 128).reshape(2, 64)
+    fields = ("data_symbols", "transmissions", "bit_errors", "n_bits",
+              "bits_on_air")
+    for call, out_shape, stat_shape in (
+            (lambda: TT.transmit_batch(x, P.PRNGKey(0), cfg, device="cpu"),
+             (2, 64), (2,)),
+            (lambda: TT.transmit_flat(x[0], P.PRNGKey(0), cfg, device="cpu"),
+             (64,), ()),
+            (lambda: TT.transmit_batch_aggregate(
+                x, P.PRNGKey(0), cfg, torch.full((2,), 0.5), device="cpu"),
+             (64,), (2,))):
+        out, st = call()
+        assert out.shape == out_shape and out.dtype == torch.float32
+        for f in fields:
+            v = getattr(st, f)
+            assert v.shape == stat_shape and bool(torch.isfinite(v).all())
+        assert bool((st.transmissions >= 1).all())
+        if mode == "ecrt":  # exact bits at the PS
+            assert not st.bit_errors.any()
+    res = run_fl(config(), cfg, *_world(), n_rounds=1, batch_per_round=4,
+                 device="cpu")
+    assert np.isfinite(res.final_accuracy) and res.airtime_s[0] > 0
+
+
+def test_unknown_mode_raises():
+    cfg = TT.TransportConfig(mode="telepathy")
     x = torch.zeros((2, 64))
     for call in (lambda: TT.transmit_batch(x, P.PRNGKey(0), cfg, device="cpu"),
                  lambda: TT.transmit_flat(x[0], P.PRNGKey(0), cfg,
                                           device="cpu"),
-                 lambda: TT.transmit_batch_aggregate(
-                     x, P.PRNGKey(0), cfg, torch.full((2,), 0.5),
-                     device="cpu"),
                  lambda: run_fl(config(), cfg, *_world(), n_rounds=1,
                                 device="cpu")):
-        with pytest.raises(NotImplementedError, match=match):
+        with pytest.raises(ValueError, match="telepathy"):
             call()
 
 

@@ -30,6 +30,16 @@ M, D = 4, 3000
 STAT_FIELDS = ("data_symbols", "transmissions", "n_bits", "bits_on_air")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: the suite runs files in parallel workers, and
+    tensor ops split over every core stall each other there."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(autouse=True)
 def partitionable():
     with jax.threefry_partitionable(True):
