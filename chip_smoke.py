@@ -51,12 +51,27 @@ against their plain PyTorch versions. Phases, each of which fails the run
    ``round_airtime``'s formula and the ECRT/approx ratio against
    ``(2 E 349,440 1.05 / 13e6 + 200e-6 E) / (349,440 / 13e6 + 200e-6)``,
    and the layered uplink alone beside its four normals per symbol.
+5d. Link adaptation at full width (the same world and CNN): the
+   ``vehicular`` scenario with E[tx] calibrated, over an approx QPSK
+   ``use_kernel`` base at 10 dB, 3 rounds each of bucketed layered,
+   bucketed fused and select, then 2 rounds of ``iot-flaky`` (dropout,
+   stragglers, stale CSI, 16 pilots). Counters set to 0 before each run
+   and read after it, and per round: K1 (layered) or K2 (fused) launched
+   exactly once per non-empty uncoded mode bucket, nothing on select.
+   Per round: mode counts, active clients, stragglers, phase times (with
+   the host-side ``link`` step), launches, airtime; each run's peak
+   memory. On round 0's real buckets (k, capacity, ``num_active``,
+   per-client SNR, the round's keys): K1 and K2 against their plain
+   versions as in phase 3+4; bucketed with kernel rows cleared against
+   select, bit for bit; a 6-client scenario run on the card against the
+   CPU plain path; the link step timed on the host and on the card.
 6. Times at the main-path shape (C=100, N=22,528, QPSK, f32; K0 at C=1):
    kernel and plain version with CUDA events (median of single launches
    after a warm-up), each kernel's bound from bytes and operations, the
    floor its SASS implies at the card's issue rate, and the
    per-round key schedule (client keys + kernel seeds) on the host and on
-   the card.
+   the card; then K1 and K2 at each bucket shape of phase 5d's round 0
+   (one median per k, capacity and ``num_active``) beside their bounds.
 7. The result: a JSON line of the kernels, ``nvidia-smi``'s line, and as
    the last line ``{"ok": true, "device": {...}}``.
 
@@ -831,8 +846,229 @@ def phase_layered(torch, device, small: bool) -> None:
     _fig3_arms(torch, device, small)
 
 
+def _round0_uplink_key(seed: int):
+    """Round 0's uplink key in the engine's schedule for a scenario run:
+    ``key -> (key, params key) -> (key, link-init key) -> (key, round
+    key)``, then ``round key -> (link key, uplink key)``."""
+    from repro_torch.core import prng
+
+    key = prng.PRNGKey(seed)
+    for _ in range(3):
+        key, sub = prng.split(key)
+    return prng.split(sub)[1]
+
+
+def _scenario_run(torch, device, cx, cy, ti, tl, scen, rounds, dispatch,
+                  fused, capture=None):
+    """One scenario run through ``RoundEngine``: launch counts per round
+    (read after each round's uplink), the result, and the peak memory."""
+    from repro_torch.configs.mnist_cnn import config
+    from repro_torch.core import channel, transport
+    from repro_torch.fl import engine
+    from repro_torch.kernels import approx_channel as ac
+
+    tcfg = transport.TransportConfig(
+        mode="approx", modulation="qpsk",
+        channel=channel.ChannelConfig(snr_db=10.0), use_kernel=True)
+    algo = engine.FedSGD(config(), batch_per_round=32)
+    eng = engine.RoundEngine(algo, tcfg, cx, cy, ti, tl, n_rounds=rounds,
+                             seed=0, eval_every=1, scenario=scen,
+                             adaptive_dispatch=dispatch,
+                             fused_aggregate=fused, device=device)
+    per_round = []
+    apply = algo.apply
+
+    def counted_apply(*args):  # one call a round, after its uplink
+        per_round.append(ac.launch_counts())
+        return apply(*args)
+
+    algo.apply = counted_apply
+    if capture is not None:
+        link_round = eng.driver.round
+
+        def captured_round(*args, **kw):
+            out = link_round(*args, **kw)
+            capture.append(out[1])
+            return out
+
+        eng.driver.round = captured_round
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    ac.reset_launch_counts()
+    res = eng.run()
+    total = ac.launch_counts()
+    peak = (f"{torch.cuda.max_memory_allocated(device) / 2**30:.3f} GiB"
+            if device.type == "cuda" else "not measured on the CPU")
+    deltas, prev = [], {"k0": 0, "k1": 0, "k2": 0}
+    for c in per_round:
+        deltas.append({k: c[k] - prev[k] for k in c})
+        prev = c
+    _check(total == prev, f"launches after the last round {total} != {prev}")
+    return res, deltas, total, peak, eng.driver
+
+
+def phase_link(torch, device, small: bool) -> list:
+    """Phase 5d: scenario-driven FedSGD rounds over the mixed-mode uplink.
+    Returns round 0's uncoded buckets as ``(k, capacity, count)``."""
+    from repro_torch.core import aggregation, channel, prng, transport
+    from repro_torch.kernels import ops
+    from repro_torch.link import scenario as scenario_lib
+
+    _log("== phase 5d: link adaptation at full width")
+    n_clients = 8 if small else 100
+    cx, cy, ti, tl = _world(n_clients, small)
+    vehicular = scenario_lib.get_scenario("vehicular")
+    _check(vehicular.ecrt_expected_tx is None, "vehicular is not calibrated")
+    runs = (("vehicular", "bucketed layered (K1)", "bucketed", False, 3),
+            ("vehicular", "bucketed fused (K2)", "bucketed", True, 3),
+            ("vehicular", "select (layered PHY)", "select", False, 3),
+            ("iot-flaky", "bucketed layered (K1)", "bucketed", False, 2))
+    rnds, first = [], None
+    for name, label, dispatch, fused, rounds in runs:
+        t0 = time.perf_counter()
+        res, deltas, total, peak, drv = _scenario_run(
+            torch, device, cx, cy, ti, tl, name, rounds, dispatch, fused,
+            capture=rnds if first is None else None)
+        secs = time.perf_counter() - t0
+        kernel = "k2" if fused else "k1"
+        for r, (link, d, ph) in enumerate(zip(res.link, deltas,
+                                              res.phase_s)):
+            uncoded = sum(1 for m, c in zip(link["mode_counts"],
+                                            drv.mode_cfgs)
+                          if m and c.mode in ("approx", "naive"))
+            want = 0 if (dispatch == "select" or device.type != "cuda") \
+                else uncoded
+            other = "k1" if fused else "k2"
+            _check(d[kernel] == want and d[other] == 0 and d["k0"] == 0,
+                   f"{name} {label} round {r}: launches {d}, expected "
+                   f"{want} {kernel} ({uncoded} uncoded buckets)")
+            _log(f"    {name} {label} round {r}: modes {link['mode_counts']}"
+                 f", active {link['n_active']}, stragglers "
+                 f"{link['n_stragglers']}, launches {d}, airtime "
+                 f"{link['airtime_s']:.6f} s; " + ", ".join(
+                     f"{k} {v * 1e3:.3f} ms" for k, v in ph.items()))
+        _check(all(math.isfinite(a) for a in res.accuracy),
+               f"{name} {label}: accuracy is not finite")
+        _check(all(math.isfinite(a) and a > 0 for a in res.airtime_s),
+               f"{name} {label}: airtime is not finite")
+        _log(f"  {name} {label}: {n_clients} clients x {rounds} rounds in "
+             f"{secs:.2f} s, launches {total}, accuracy {res.accuracy}, "
+             f"cumulative airtime {res.airtime_s} s, peak memory {peak}, "
+             f"E[tx] of the ECRT row {drv.mode_cfgs[0].ecrt_expected_tx!r}")
+        if first is None:
+            first = drv
+    # Round 0's real buckets through K1 and K2 against their plain versions.
+    rnd = rnds[0]
+    modes = rnd.mode.cpu().numpy()
+    k_tx = _round0_uplink_key(0)
+    keys = transport.client_keys(k_tx, n_clients)
+    n = 22528 if not small else 2048
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn((n_clients, n), generator=g) * 1e-2
+    snr_vec = channel.snr_db_vector(rnd.snr_db, n_clients)
+    buckets = []
+    w_all = aggregation.normalize_weights(rnd.active)
+    for m, cfg in enumerate(first.mode_cfgs):
+        idx = (modes == m).nonzero()[0]
+        if cfg.mode not in ("approx", "naive") or idx.size == 0:
+            continue
+        count, cap = int(idx.size), transport._bucket_capacity(int(idx.size))
+        xb, kb, sb = transport._gather_bucket(x, keys, snr_vec, idx, count,
+                                              cap)
+        seeds = ops._seed_from_key(kb).to(device)
+        npow, gains = ops._link_params(cfg, cap, sb.to(device), device)
+        wb = torch.zeros(cap)
+        wb[:count] = w_all[torch.from_numpy(idx)]
+        k = cfg.scheme.bits_per_symbol
+        kw = dict(bits_per_symbol=k, fading="rayleigh", clamp_mask=0xBFFFFFFF,
+                  word_bits=32)
+        xd = xb.to(device).contiguous()
+        nd, e1, xk, edges = _compare_k1(torch, xd, seeds, npow, gains, kw,
+                                        num_active=count)
+        _check(not bool(xk[count:].any()), "masked bucket rows are not zero")
+        e2 = _compare_k2(torch, xd, seeds, npow, gains, wb.to(device), kw,
+                         xk, edges, num_active=count)
+        buckets.append((k, cap, count))
+        _log(f"  round 0 bucket {cfg.modulation}: k={k}, capacity {cap}, "
+             f"num_active {count}, SNR {float(sb[:count].min()):.2f}.."
+             f"{float(sb[:count].max()):.2f} dB: K1 words differing {nd} "
+             f"(edge-bound), max|err| K1 {e1:.3g}, K2 {e2:.3g}")
+    # Bucketed with kernel rows cleared against select, on the round's modes.
+    cleared = transport.clear_kernel_rows(first.mode_cfgs)
+    x = (torch.randn((n_clients, 21840 if not small else 1000),
+                     generator=g) * 1e-2).to(device)
+    xb, sb_ = transport.transmit_batch_adaptive(
+        x, k_tx, cleared, modes, snr_db=rnd.snr_db, dispatch="bucketed",
+        device=device)
+    xs, ss_ = transport.transmit_batch_adaptive(
+        x, k_tx, cleared, modes, snr_db=rnd.snr_db, dispatch="select",
+        device=device)
+    _check(torch.equal(_bits(torch, xb), _bits(torch, xs))
+           and torch.equal(sb_.bit_errors, ss_.bit_errors),
+           "bucketed (kernel rows cleared) differs from select")
+    _log(f"  bucketed (kernel rows cleared) == select, bit for bit, on "
+         f"round 0's modes ({n_clients} x {x.shape[1]} floats)")
+    if device.type == "cuda":
+        _link_card_vs_cpu(torch, device)
+    _link_step_times(torch, device, n_clients, first)
+    return buckets
+
+
+def _link_card_vs_cpu(torch, device) -> None:
+    """A 6-client scenario run on the card against the CPU plain path."""
+    from repro_torch.link import scenario as scenario_lib
+
+    cx, cy, ti, tl = _world(6, small=True)
+    scen = dataclasses.replace(scenario_lib.get_scenario("vehicular"),
+                               ecrt_expected_tx=2.0, dropout_prob=0.1)
+    for dispatch, fused in (("bucketed", False), ("bucketed", True),
+                            ("select", False)):
+        a = _scenario_run(torch, device, cx, cy, ti, tl, scen, 3, dispatch,
+                          fused)[0]
+        b = _scenario_run(torch, torch.device("cpu"), cx, cy, ti, tl, scen,
+                          3, dispatch, fused)[0]
+        tol = 2 / len(tl) + 1e-6
+        _check([r["mode_counts"] for r in a.link]
+               == [r["mode_counts"] for r in b.link]
+               and [r["n_active"] for r in a.link]
+               == [r["n_active"] for r in b.link],
+               f"scenario modes differ between the card and the CPU "
+               f"({dispatch}, fused={fused})")
+        _check(all(abs(p - q) <= tol for p, q in zip(a.accuracy, b.accuracy)),
+               f"scenario GPU {a.accuracy} vs CPU {b.accuracy} accuracy")
+        _check(all(abs(p - q) <= 1e-6 * q
+                   for p, q in zip(a.airtime_s, b.airtime_s)),
+               "scenario GPU and CPU airtime differ")
+        _log(f"  6-client vehicular, {dispatch} fused={fused}: modes "
+             f"{[r['mode_counts'] for r in a.link]}, GPU {a.accuracy} vs "
+             f"CPU {b.accuracy}")
+
+
+def _link_step_times(torch, device, n_clients, driver) -> None:
+    """The link step (dynamics, estimator, policy, Bernoullis) for the
+    cohort, on the host where the engine runs it and on the device."""
+    from repro_torch.core import prng
+    from repro_torch.link import scenario as scenario_lib
+
+    clock = Clock(torch, device)
+    reps = 20 if device.type == "cuda" else 3
+    for name in ("vehicular", "iot-flaky"):
+        drv = scenario_lib.ScenarioDriver(
+            dataclasses.replace(scenario_lib.get_scenario(name),
+                                ecrt_expected_tx=2.0), driver.mode_cfgs[1],
+            device=device)
+        for where in ("cpu", device):
+            key = prng.PRNGKey(3, device=where)
+            state, mode, est = drv.init(key, n_clients)
+            ms = clock.host_median_ms(
+                lambda: drv.round(state, mode, est, key), reps)
+            _log(f"  link step ({name}, {n_clients} clients) on "
+                 f"{torch.device(where).type}: {ms:.3f} ms (median of "
+                 f"{reps})")
+
+
 def phase_times(torch, device, small: bool, launches: dict, sass: dict,
-                mhz) -> list:
+                mhz, buckets=()) -> list:
     from repro_torch.core import aggregation, prng, transport
     from repro_torch.kernels import approx_channel as ac
     from repro_torch.kernels import ops, ref
@@ -919,6 +1155,36 @@ def phase_times(torch, device, small: bool, launches: dict, sass: dict,
             "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
             "library_ms": None,
         })
+    # K1 and K2 at phase 5d's round-0 bucket shapes: capacity rows, the
+    # tail past num_active masked; the bound counts the active rows.
+    for k, cap, count in buckets:
+        xb = (torch.randn((cap, n), generator=g) * 1e-2).to(device)
+        sb = ops._seed_from_key(transport.client_keys(prng.PRNGKey(k), cap)
+                                ).to(device)
+        pb = torch.full((cap,), 1e-4, dtype=torch.float32, device=device)
+        gb = torch.full((cap,), 1e-3, dtype=torch.float32, device=device)
+        wb = torch.zeros(cap, device=device)
+        wb[:count] = 1.0 / count
+        kwb = dict(kw, bits_per_symbol=k)
+        for name, kern, plain in (
+                ("k1", lambda: ac.approx_channel_batch_kernel(
+                    xb, sb, pb, gb, num_active=count, **kwb),
+                 lambda: ref.approx_channel_batch_ref(
+                     xb, sb, pb, gb, num_active=count, **kwb)),
+                ("k2", lambda: ac.approx_channel_batch_aggregate_kernel(
+                    xb, sb, pb, gb, wb, num_active=count, **kwb),
+                 lambda: ref.approx_channel_batch_aggregate_ref(
+                     xb, sb, pb, gb, wb, num_active=count, **kwb))):
+            p1 = clock.median_ms(plain, preps)
+            t1 = clock.median_ms(kern, reps)
+            t2 = clock.median_ms(kern, reps)
+            p2 = clock.median_ms(plain, preps)
+            b = _bound(count, n, k, "rayleigh", 32, name)
+            _log(f"  {name} bucket k={k} capacity {cap} num_active {count}: "
+                 f"kernel {min(t1, t2):.4f} ms (runs {t1:.4f}, {t2:.4f}), "
+                 f"plain {min(p1, p2):.3f} ms; bound {b['bound_ms']:.4f} ms "
+                 f"({b['bound_by']}: {b['bytes'] / 1e6:.2f} MB, "
+                 f"{b['ops'] / 1e9:.2f} G ops)")
     return rows
 
 
@@ -955,7 +1221,9 @@ def main(argv=None) -> int:
         if device.type == "cuda":
             phase_reference(torch, device)
         phase_layered(torch, device, small)
-        rows = phase_times(torch, device, small, launches, sass, mhz)
+        buckets = phase_link(torch, device, small)
+        rows = phase_times(torch, device, small, launches, sass, mhz,
+                           buckets)
     except PhaseError as e:
         print(f"chip_smoke.py: FAILED: {e}", file=sys.stderr)
         return 1

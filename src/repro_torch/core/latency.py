@@ -9,11 +9,11 @@ LDPC chain (encode -> channel -> soft min-sum decode -> retransmit) and
 returns E[transmissions per codeword]; ``ecrt_expected_tx_curve``,
 ``interp_expected_tx`` and ``ecrt_expected_tx_profile`` turn it into
 per-client E[tx] for heterogeneous SNR. ECRT pays the FEC-processing stall
-on its data time and the per-transmission overhead E[tx] times.
+on its data time and the per-transmission overhead E[tx] times;
+``round_airtime_adaptive`` prices a mixed-mode round client by client.
 
-Not ported yet: ``round_airtime_adaptive`` (ROADMAP Queue 1, item 4),
-``broadcast_airtime`` (item 5), ``arrival_times`` and
-``sync_round_duration`` (item 7).
+Not ported yet: ``broadcast_airtime`` (ROADMAP Queue 1, item 5),
+``arrival_times`` and ``sync_round_duration`` (item 7).
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ from repro_torch.core import modulation as mod_lib
 from repro_torch.core import prng
 
 __all__ = ["DEFAULT_CALIB_CODEWORDS", "DEFAULT_CALIB_MAX_TX", "PhyTimings",
-           "round_airtime", "calibrate_ecrt", "ecrt_expected_tx_curve",
+           "round_airtime", "round_airtime_adaptive", "calibrate_ecrt", "ecrt_expected_tx_curve",
            "interp_expected_tx", "ecrt_expected_tx_profile"]
 
 # ECRT E[tx] pricing sample budget shared by every pricing entry point
@@ -62,6 +62,27 @@ def round_airtime(stats, timings: PhyTimings, mode: str):
     if mode == "ecrt":
         t_data = t_data * (1.0 + timings.fec_encode_overhead)
     return t_data + t_ovh
+
+
+def round_airtime_adaptive(stats, timings: PhyTimings, cfgs):
+    """Per-client airtime (seconds) of a mixed-mode round: each client is
+    priced under its row ``cfgs[stats.mode_idx[i]]``, and ECRT clients pay
+    the FEC-processing stall on their data time. ``stats`` comes from
+    ``transport.transmit_batch_adaptive``. Returns ``(num_clients,)``
+    float32, as ``data_symbols / symbol_rate * (1 + stall) +
+    transmissions * t_overhead``."""
+    if stats.mode_idx is None:
+        raise ValueError(
+            "round_airtime_adaptive needs TxStats.mode_idx (from "
+            "transmit_batch_adaptive); for single-mode stats use "
+            "round_airtime")
+    sym = stats.data_symbols
+    stall = torch.tensor(
+        [timings.fec_encode_overhead if c.mode == "ecrt" else 0.0
+         for c in cfgs], dtype=torch.float32, device=sym.device)
+    fec_stall = stall[stats.mode_idx.to(device=sym.device, dtype=torch.int64)]
+    t_data = sym / torch.full_like(sym, timings.symbol_rate) * (1.0 + fec_stall)
+    return t_data + stats.transmissions * timings.t_overhead
 
 
 def calibrate_ecrt(snr_db: float, modulation: str = "qpsk",

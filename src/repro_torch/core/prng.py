@@ -14,7 +14,11 @@ reproduces that key schedule integer for integer:
 * ``uniform`` sets the mantissa of ``1.0`` from the top 23 random bits;
 * ``normal`` is ``sqrt(2) * erfinv(u)`` on ``u ~ U(nextafter(-1, 0), 1)``.
   ``torch.erfinv`` is not XLA's ``erf_inv``, so normals agree only to a
-  few ULP (see ``tests/test_torch_prng.py``); everything else is exact.
+  few ULP (see ``tests/test_torch_prng.py``); everything else is exact;
+* ``bernoulli`` is ``uniform < p``, exact;
+* ``gamma`` is jax's Marsaglia-Tsang sampler with its key consumption,
+  vectorised over elements; it inherits the few ULP of ``normal`` (and
+  of ``log`` in its acceptance test).
 
 Keys are ``int64`` tensors of shape ``(..., 2)`` holding ``uint32``
 values. Everything derived from a key is made on the key's device, so a
@@ -43,6 +47,8 @@ __all__ = [
     "randint",
     "uniform",
     "normal",
+    "bernoulli",
+    "gamma",
 ]
 
 M32 = 0xFFFFFFFF
@@ -146,12 +152,13 @@ def randint(key: torch.Tensor, shape, minval: int, maxval: int) -> torch.Tensor:
     return torch.where(val >= 1 << 31, val - (1 << 32), val)
 
 
-def split_batched(key: torch.Tensor):
-    """``split(key, 2)`` for a batch of keys ``(..., 2)``: two ``(..., 2)``."""
-    lo = torch.arange(2, dtype=torch.int64, device=key.device)
+def split_batched(key: torch.Tensor, num: int = 2):
+    """``split(key, num)`` for a batch of keys ``(..., 2)``: ``num`` keys
+    ``(..., 2)``."""
+    lo = torch.arange(num, dtype=torch.int64, device=key.device)
     a, b = _hash(key[..., None, :], 0, lo)
-    out = torch.stack([a, b], dim=-1)  # (..., 2, 2): [..., i] = key i
-    return out[..., 0, :], out[..., 1, :]
+    out = torch.stack([a, b], dim=-1)  # (..., num, 2): [..., i] = key i
+    return tuple(out[..., i, :] for i in range(num))
 
 
 def _bits_to_unit_f32(bits: torch.Tensor) -> torch.Tensor:
@@ -162,11 +169,19 @@ def _bits_to_unit_f32(bits: torch.Tensor) -> torch.Tensor:
 
 def uniform(key: torch.Tensor, shape=(), minval: float = 0.0,
             maxval: float = 1.0) -> torch.Tensor:
-    """``jax.random.uniform(key, shape, float32, minval, maxval)``."""
+    """``jax.random.uniform(key, shape, float32, minval, maxval)``.
+
+    XLA computes ``floats * (maxval - minval) + minval`` as one fused
+    multiply-add; so does this, in float64, where the product of two
+    float32 values is exact and the sum of these operands rounds once
+    (a multiple of ``2**-23`` in ``[0, 1)`` times ``maxval - minval``,
+    plus ``minval``), so the cast back is the fma's one rounding.
+    """
     lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
     hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
     floats = _bits_to_unit_f32(random_bits(key, shape))
-    return torch.maximum(lo, floats * (hi - lo) + lo)
+    scaled = (floats.double() * (hi - lo).double() + lo.double()).float()
+    return torch.maximum(lo, scaled)
 
 
 _LO_NORMAL = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
@@ -177,3 +192,77 @@ def normal(key: torch.Tensor, shape=()) -> torch.Tensor:
     """``jax.random.normal(key, shape, float32)``: ``sqrt(2) * erfinv(u)``."""
     u = uniform(key, shape, _LO_NORMAL, 1.0)
     return torch.erfinv(u) * _SQRT2_F32
+
+
+def bernoulli(key: torch.Tensor, p: float, shape=()) -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, shape)`` (mode ``"low"``): ``uniform
+    < p`` with ``p`` in float32. Returns a bool tensor."""
+    return uniform(key, shape) < torch.tensor(p, dtype=torch.float32,
+                                              device=key.device)
+
+
+def _f32(v: float, device) -> torch.Tensor:
+    return torch.tensor(v, dtype=torch.float32, device=device)
+
+
+def gamma(key: torch.Tensor, a: float, shape=()) -> torch.Tensor:
+    """``jax.random.gamma(key, a, shape, float32)`` for a scalar ``a > 0``.
+
+    jax 0.9.0's ``_gamma_impl``/``_gamma_one``: element ``i`` draws from
+    ``split(key, n)[i]``; ``key, subkey = split(key)``; then Marsaglia-Tsang
+    with ``d = a - 1/3``, ``c = (1/3) / sqrt(d)``: each rejection step
+    splits its key in three (``key, x_key, U_key``), redraws the normal
+    ``x`` from successive ``split(x_key)`` halves while ``v = 1 + x c <=
+    0``, and accepts once ``U < 1 - 0.0331 X^2`` (``X = x^2``) or ``log U <
+    X/2 + d (1 - V + log V)``. ``a < 1`` is boosted to ``a + 1`` and the
+    sample scaled by ``(1 - uniform(subkey))^(1/a)``. jax vmaps the
+    rejection loop; here every element still pending runs the next step
+    together, which consumes the same keys.
+    """
+    shape = tuple(shape)
+    n = math.prod(shape)
+    dev = key.device
+    if not a > 0:
+        raise ValueError(f"gamma needs a > 0, got {a}")
+    one, zero = _f32(1.0, dev), _f32(0.0, dev)
+    third, half = _f32(1.0 / 3.0, dev), _f32(0.5, dev)
+    squeeze = _f32(0.0331, dev)
+    alpha_orig = _f32(a, dev)
+    boost = bool(alpha_orig < one)
+    alpha = alpha_orig + one if boost else alpha_orig
+    d = alpha - third
+    c = third / torch.sqrt(d)
+    keys, subkeys = split_batched(split(key, n))
+    big_x = torch.zeros((n,), dtype=torch.float32, device=dev)
+    big_v = torch.ones((n,), dtype=torch.float32, device=dev)
+    big_u = torch.full((n,), 2.0, dtype=torch.float32, device=dev)
+
+    def pending_of(x2, v3, u):
+        return ((u >= one - squeeze * (x2 * x2))
+                & (torch.log(u) >= x2 * half
+                   + d * ((one - v3) + torch.log(v3))))
+
+    pending = pending_of(big_x, big_v, big_u)
+    while bool(pending.any()):
+        idx = pending.nonzero().reshape(-1)
+        keys_p, x_key, u_key = split_batched(keys[idx], 3)
+        x = torch.zeros((idx.numel(),), dtype=torch.float32, device=dev)
+        v = torch.full_like(x, -1.0)
+        redraw = v <= zero
+        while bool(redraw.any()):
+            r = redraw.nonzero().reshape(-1)
+            x_key_r, sub = split_batched(x_key[r], 2)
+            x_key[r] = x_key_r
+            x[r] = normal(sub, ())
+            v[r] = one + x[r] * c
+            redraw = v <= zero
+        keys[idx] = keys_p
+        big_x[idx] = x * x
+        big_v[idx] = (v * v) * v
+        big_u[idx] = uniform(u_key, ())
+        pending = pending_of(big_x, big_v, big_u)
+    sample = d * big_v
+    if boost:
+        u = one - uniform(subkeys, ())
+        sample = sample * torch.pow(u, one / alpha_orig)
+    return sample.reshape(shape)

@@ -18,6 +18,20 @@ reference's ``float_codec -> modulation -> channel -> demod`` chain as
 tensor operations, with the reference's ``threefry`` draws. Both run on
 the payload's device.
 
+Mixed-mode batches (:func:`transmit_batch_adaptive`, the link-adaptation
+hook) give client ``i`` the table row ``cfgs[mode_idx[i]]``. The
+``bucketed`` dispatch stable-sorts clients by mode, gathers each mode's
+rows into one bucket padded to a quarter-octave capacity
+(:func:`_bucket_capacity`; pad rows are zeros with row 0's key and SNR,
+masked by ``num_active`` on the kernel path and discarded otherwise), runs
+each bucket once (one K1 or K2 launch per uncoded bucket on
+``use_kernel`` rows), and scatters the rows back to client order. The
+reference's ``select`` dispatch vmaps a ``lax.switch`` over the table, so
+every client pays every mode; here a batch row does not depend on the
+rest of its batch, so ``select`` runs each mode on exactly its own
+clients, unpadded, and gives the same bits. Like the reference it
+refuses ``use_kernel`` rows (:func:`clear_kernel_rows` clears them).
+
 The key schedule is the reference's: client ``i`` of a batch draws
 ``fold_in(key, client_offset + i)`` (:func:`client_keys`). On the kernel
 path each client's kernel seed is ``randint(key_i, (), 0, int32 max)``; on
@@ -40,6 +54,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any
 
+import numpy as np
 import torch
 
 from repro_torch import resolve_device
@@ -61,6 +76,11 @@ __all__ = [
     "transmit_pytree_batch",
     "transmit_batch_aggregate",
     "transmit_pytree_batch_aggregate",
+    "clear_kernel_rows",
+    "transmit_batch_adaptive",
+    "transmit_pytree_batch_adaptive",
+    "transmit_batch_adaptive_aggregate",
+    "transmit_pytree_batch_adaptive_aggregate",
 ]
 
 _MODES = ("perfect", "naive", "approx", "ecrt")
@@ -109,13 +129,17 @@ class TxStats:
     * ``bits_on_air`` — bits actually put on the air.
 
     Fields are float32 tensors: scalars for one uplink, ``(num_clients,)``
-    for a batch.
+    for a batch. ``mode_idx`` is ``None`` for single-mode calls, or the
+    ``(num_clients,)`` int32 table index each client of
+    :func:`transmit_batch_adaptive` used (after clamping), so
+    ``latency.round_airtime_adaptive`` prices each client under its mode.
     """
 
     data_symbols: torch.Tensor
     transmissions: torch.Tensor
     bit_errors: torch.Tensor
     n_bits: torch.Tensor
+    mode_idx: Any = None
     bits_on_air: Any = None
 
     @property
@@ -410,10 +434,12 @@ def _resolve_batch_snr(cfg: TransportConfig, num_clients: int, snr_db,
 
 
 def _batch_with_keys(x: torch.Tensor, keys: torch.Tensor,
-                     cfg: TransportConfig, snr_vec):
+                     cfg: TransportConfig, snr_vec, *, num_active=None):
     """Single-mode batch over explicit per-client keys ``(C, 2)``, in the
     reference's dispatch order: perfect, the kernel path, the chunked and
-    whole layered PHY, ECRT real or analytic."""
+    whole layered PHY, ECRT real or analytic. ``num_active`` masks the
+    tail rows of a padded bucket on the kernel path (no PHY work, zeros);
+    the other paths compute them and the caller discards them."""
     c, n = x.shape
     if cfg.mode == "perfect":
         wb, k = _wire_bits(cfg), cfg.scheme.bits_per_symbol
@@ -422,7 +448,8 @@ def _batch_with_keys(x: torch.Tensor, keys: torch.Tensor,
     if cfg.mode in ("naive", "approx") and cfg.use_kernel:
         from repro_torch.kernels import ops as kernel_ops
 
-        return kernel_ops.approx_channel_transmit_batch(x, keys, cfg, snr_vec)
+        return kernel_ops.approx_channel_transmit_batch(
+            x, keys, cfg, snr_vec, num_active=num_active)
     keys = keys.to(x.device)  # every draw of these paths is per symbol
     if cfg.mode in ("naive", "approx"):
         clamp = cfg.mode == "approx"
@@ -481,16 +508,18 @@ def _scan_weighted_sum(rows: torch.Tensor, weights, num_active=None):
     return agg
 
 
-def _batch_aggregate_with_keys(x, keys, cfg, snr_vec, weights):
+def _batch_aggregate_with_keys(x, keys, cfg, snr_vec, weights, *,
+                               num_active=None):
     """Single-mode batch + weighted aggregation over explicit keys: K2 on
-    the kernel path, the client-order sum over the batch otherwise."""
+    the kernel path, the client-order sum over the batch otherwise. Rows
+    at or beyond ``num_active`` add nothing."""
     if cfg.mode in ("naive", "approx") and cfg.use_kernel:
         from repro_torch.kernels import ops as kernel_ops
 
         return kernel_ops.approx_channel_transmit_batch_aggregate(
-            x, keys, cfg, snr_vec, weights)
+            x, keys, cfg, snr_vec, weights, num_active=num_active)
     x_hat, stats = _batch_with_keys(x, keys, cfg, snr_vec)
-    return _scan_weighted_sum(x_hat, weights), stats
+    return _scan_weighted_sum(x_hat, weights, num_active), stats
 
 
 def transmit_batch_aggregate(x, key: torch.Tensor, cfg: TransportConfig,
@@ -512,6 +541,259 @@ def transmit_batch_aggregate(x, key: torch.Tensor, cfg: TransportConfig,
     with spans.span("keys"):
         keys = client_keys(key, num_clients, client_offset)
     return _batch_aggregate_with_keys(x, keys, cfg, snr_vec, weights)
+
+
+def _same_channel(a: channel_lib.ChannelConfig,
+                  b: channel_lib.ChannelConfig) -> bool:
+    """ChannelConfig equality that tolerates array-valued ``snr_db``: a
+    scalar, a 0-d array and a length-1 sequence all mean one SNR, and a
+    size-1 value equals any vector it would broadcast to."""
+    if a is b:
+        return True
+    if dataclasses.replace(a, snr_db=0.0) != dataclasses.replace(b, snr_db=0.0):
+        return False
+    sa = np.asarray(a.snr_db, np.float32).reshape(-1)
+    sb = np.asarray(b.snr_db, np.float32).reshape(-1)
+    if sa.size != sb.size and sa.size != 1 and sb.size != 1:
+        return False
+    if sa.size == 0 or sb.size == 0:
+        return sa.size == sb.size
+    return bool(np.all(sa == sb))
+
+
+def clear_kernel_rows(cfgs):
+    """A mode table with every ``use_kernel`` flag cleared: the one rule
+    behind every select-dispatch consumer. The layered rows draw their own,
+    equally valid, channel realization, so the kernel flag is never
+    dropped silently."""
+    return tuple(
+        dataclasses.replace(c, use_kernel=False) if c.use_kernel else c
+        for c in cfgs
+    )
+
+
+def _bucket_capacity(count: int) -> int:
+    """Bucket capacity for ``count`` clients: the next multiple of
+    ``2^(floor(log2 count) - 2)`` (counts <= 4 exact), so at most four
+    capacities per octave and at most 25% masked padding."""
+    if count <= 4:
+        return max(count, 1)
+    granule = 1 << (count.bit_length() - 3)
+    return -(-count // granule) * granule
+
+
+def _gather_bucket(x, keys, snr_vec, idx, count, cap):
+    """One mode bucket's rows, padded to ``cap``: payload pads with zero
+    rows, keys and SNR with row 0's (the pad rows' outputs are masked or
+    discarded). ``idx`` is a numpy index vector; keys stay on their
+    device (the host), payload and SNR on theirs."""
+    xb = x[torch.as_tensor(idx, device=x.device)]
+    kb = keys[torch.as_tensor(idx, device=keys.device)]
+    sb = (None if snr_vec is None
+          else snr_vec[torch.as_tensor(idx, device=snr_vec.device)])
+    if cap > count:
+        pad = cap - count
+        xb = torch.cat([xb, xb.new_zeros((pad, xb.shape[1]))])
+        kb = torch.cat([kb, kb[:1].expand(pad, -1)])
+        if sb is not None:
+            sb = torch.cat([sb, sb[:1].expand(pad)])
+    return xb, kb, sb
+
+
+def _slice_stats(st: TxStats, count: int) -> TxStats:
+    """Drop a padded bucket's tail rows from every stat field."""
+    return TxStats(st.data_symbols[:count], st.transmissions[:count],
+                   st.bit_errors[:count], st.n_bits[:count],
+                   bits_on_air=st.bits_on_air[:count])
+
+
+_STAT_FIELDS = ("data_symbols", "transmissions", "bit_errors", "n_bits",
+                "bits_on_air")
+
+
+def _inverse(order) -> np.ndarray:
+    """The inverse of the stable permutation ``order`` (sorted position ->
+    client becomes client -> sorted position)."""
+    inv = np.empty(len(order), np.int64)
+    inv[order] = np.arange(len(order))
+    return inv
+
+
+def _scatter_stats(parts_st, inv):
+    """Per-bucket stats (in sorted order) back to client order through
+    ``inv``; ``mode_idx`` is left to the caller."""
+    inv = torch.as_tensor(inv, device=parts_st[0].data_symbols.device)
+    return TxStats(**{f: torch.cat([getattr(st, f) for st in parts_st])[inv]
+                      for f in _STAT_FIELDS})
+
+
+def _scatter_bucket_parts(parts_x, parts_st, order):
+    """Per-bucket payload rows and stats back to client order:
+    ``(x_hat, stats)``."""
+    inv = _inverse(order)
+    x_cat = torch.cat(parts_x)
+    return (x_cat[torch.as_tensor(inv, device=x_cat.device)],
+            _scatter_stats(parts_st, inv))
+
+
+def _buckets(mode_np, n_modes):
+    """``(order, [(mode, count, client indices)] of the non-empty modes,
+    in increasing mode index)`` for a concrete mode vector."""
+    order = np.argsort(mode_np, kind="stable")
+    counts = np.bincount(mode_np, minlength=n_modes)
+    starts = np.concatenate([[0], np.cumsum(counts)])
+    return order, [(m, int(counts[m]), order[starts[m]:starts[m + 1]])
+                   for m in range(n_modes) if counts[m]]
+
+
+def _empty_stats(device) -> TxStats:
+    empty = torch.zeros((0,), dtype=torch.float32, device=device)
+    return TxStats(empty, empty, empty, empty, bits_on_air=empty)
+
+
+def _bucketed_adaptive(x, keys, cfgs, mode_np, snr_vec, *, padded=True):
+    """Sort/gather/scatter mixed-mode dispatch: each non-empty mode runs
+    once on its bucket (padded to :func:`_bucket_capacity`, tail masked
+    with ``num_active``), rows and stats scatter back to client order.
+    ``padded=False`` runs each bucket at exactly its count (the select
+    dispatch); a row's result is the same either way."""
+    num_clients = x.shape[0]
+    if num_clients == 0:
+        return x, _empty_stats(x.device)
+    order, buckets = _buckets(mode_np, len(cfgs))
+    parts_x, parts_st = [], []
+    for m, count, idx in buckets:
+        cap = _bucket_capacity(count) if padded else count
+        xb, kb, sb = _gather_bucket(x, keys, snr_vec, idx, count, cap)
+        xh, st = _batch_with_keys(xb, kb, cfgs[m], sb, num_active=count)
+        parts_x.append(xh[:count])
+        parts_st.append(_slice_stats(st, count))
+    return _scatter_bucket_parts(parts_x, parts_st, order)
+
+
+def _bucketed_adaptive_aggregate(x, keys, cfgs, mode_np, snr_vec, weights):
+    """Bucketed dispatch with per-bucket fused aggregation: each bucket
+    reduces to one weighted partial (K2 on ``use_kernel`` rows, the
+    client-order sum otherwise; pad rows masked by ``num_active``), and
+    the partials add as ``total + partial`` in increasing mode index, the
+    reference's summation order. Weights are normalized globally by the
+    caller, before the split."""
+    num_clients, n_payload = x.shape
+    if num_clients == 0:
+        return x.new_zeros((n_payload,)), _empty_stats(x.device)
+    w = torch.as_tensor(weights, dtype=torch.float32).to(x.device)
+    order, buckets = _buckets(mode_np, len(cfgs))
+    total, parts_st = None, []
+    for m, count, idx in buckets:
+        cap = _bucket_capacity(count)
+        xb, kb, sb = _gather_bucket(x, keys, snr_vec, idx, count, cap)
+        wb = w[torch.as_tensor(idx, device=w.device)]
+        if cap > count:
+            wb = torch.cat([wb, wb.new_zeros((cap - count,))])
+        agg, st = _batch_aggregate_with_keys(xb, kb, cfgs[m], sb, wb,
+                                             num_active=count)
+        total = agg if total is None else total + agg
+        parts_st.append(_slice_stats(st, count))
+    return total, _scatter_stats(parts_st, _inverse(order))
+
+
+def _adaptive_prologue(x, key, cfgs, mode_idx, snr_db, client_offset,
+                       dispatch, caller, device):
+    """Shared head of the adaptive dispatches: validates the payload and
+    the shared-channel invariant, gives every row ``cfgs[0]``'s channel,
+    resolves the dispatch (``"auto"`` is ``"bucketed"``: the mode vector
+    is always concrete here), clamps the mode vector once (the dispatch
+    and ``stats.mode_idx`` agree on the mode used) and builds the key
+    schedule. Returns ``(x, cfgs, mode_np, snr_vec, keys, dispatch)``."""
+    x = _payload(x, device, 2, caller)
+    cfgs = tuple(cfgs)
+    if not cfgs:
+        raise ValueError(f"{caller} needs a non-empty config table")
+    for cfg in cfgs:
+        _check_mode(cfg)
+        if not _same_channel(cfg.channel, cfgs[0].channel):
+            raise ValueError(
+                "all adaptive mode configs must share one ChannelConfig; "
+                f"got {cfg.channel} vs {cfgs[0].channel}")
+    ch0 = cfgs[0].channel
+    cfgs = tuple(c if c.channel is ch0 else dataclasses.replace(c, channel=ch0)
+                 for c in cfgs)
+    if dispatch == "auto":
+        dispatch = "bucketed"
+    if dispatch not in ("bucketed", "select"):
+        raise ValueError(f"unknown dispatch {dispatch!r}; use bucketed|select")
+    if dispatch == "select" and any(cfg.use_kernel for cfg in cfgs):
+        raise ValueError(
+            "use_kernel configs cannot take the select dispatch (the "
+            "reference's vmapped switch cannot lower its kernel); use the "
+            "bucketed dispatch, or clear_kernel_rows")
+    num_clients = x.shape[0]
+    if isinstance(mode_idx, torch.Tensor):
+        mode_idx = mode_idx.cpu()
+    mode_np = np.asarray(mode_idx).astype(np.int32)
+    if mode_np.shape != (num_clients,):
+        raise ValueError(
+            f"mode_idx must be ({num_clients},) to match the batch; got "
+            f"{mode_np.shape}")
+    mode_np = np.clip(mode_np, 0, len(cfgs) - 1)
+    snr_vec = _resolve_batch_snr(cfgs[0], num_clients, snr_db, x.device)
+    with spans.span("keys"):
+        keys = client_keys(key, num_clients, client_offset)
+    return x, cfgs, mode_np, snr_vec, keys, dispatch
+
+
+def transmit_batch_adaptive(x, key: torch.Tensor, cfgs, mode_idx, *,
+                            snr_db=None, client_offset: int = 0,
+                            dispatch: str = "auto", device=None):
+    """Mixed-mode batched uplink: client ``i`` uses ``cfgs[mode_idx[i]]``.
+
+    Args:
+      x: ``(num_clients, N)`` payload matrix.
+      key: base PRNG key; the :func:`client_keys` schedule, so row ``i``
+        equals ``transmit_flat(x[i], fold_in(key, client_offset + i),
+        cfgs[m_i])`` under either dispatch.
+      cfgs: the mode table; all rows share one ``ChannelConfig``.
+      mode_idx: ``(num_clients,)`` table indices; out-of-range values
+        clamp, and the clamped vector is what ``stats.mode_idx`` records.
+      snr_db: optional per-client SNR (scalar or ``(num_clients,)``).
+      client_offset: global index of row 0.
+      dispatch: ``"auto"`` (= ``"bucketed"``), ``"bucketed"`` (one batch
+        per non-empty mode at a quarter-octave capacity; ``use_kernel``
+        rows launch K1 once per bucket) or ``"select"`` (each mode on
+        exactly its clients; ``use_kernel`` rows raise ``ValueError``).
+      device: where to run; ``None`` is the GPU.
+
+    Returns ``(x_hat (num_clients, N) float32, TxStats)`` with
+    ``stats.mode_idx`` set.
+    """
+    x, cfgs, mode_np, snr_vec, keys, dispatch = _adaptive_prologue(
+        x, key, cfgs, mode_idx, snr_db, client_offset, dispatch,
+        "transmit_batch_adaptive", device)
+    x_hat, stats = _bucketed_adaptive(x, keys, cfgs, mode_np, snr_vec,
+                                      padded=dispatch == "bucketed")
+    stats.mode_idx = torch.as_tensor(mode_np, device=x.device)
+    return x_hat, stats
+
+
+def transmit_batch_adaptive_aggregate(x, key: torch.Tensor, cfgs, mode_idx,
+                                      weights, *, snr_db=None,
+                                      client_offset: int = 0, device=None):
+    """Mixed-mode fused uplink + aggregation (bucketed dispatch only).
+
+    Each mode bucket reduces its clients to one weighted partial (one K2
+    launch per uncoded ``use_kernel`` bucket) and the partials add in
+    increasing mode index: on a one-mode cohort this is
+    :func:`transmit_batch_aggregate` bit for bit. ``weights`` must be
+    normalized over the whole cohort first. Returns ``(agg (N,) float32,
+    TxStats)`` with stats in client order and ``mode_idx`` set.
+    """
+    x, cfgs, mode_np, snr_vec, keys, _ = _adaptive_prologue(
+        x, key, cfgs, mode_idx, snr_db, client_offset, "bucketed",
+        "transmit_batch_adaptive_aggregate", device)
+    agg, stats = _bucketed_adaptive_aggregate(x, keys, cfgs, mode_np,
+                                              snr_vec, weights)
+    stats.mode_idx = torch.as_tensor(mode_np, device=x.device)
+    return agg, stats
 
 
 def tree_flatten(tree) -> tuple[list, Any]:
@@ -548,6 +830,31 @@ def _flatten_client_tree(tree):
     return flat, (leaves, spec)
 
 
+def _unflatten_client_tree(flat_hat: torch.Tensor, tree_spec):
+    """``(C, D)`` rows back to the client tree, shapes and dtypes restored."""
+    leaves, spec = tree_spec
+    out, off = [], 0
+    for leaf in leaves:
+        size = leaf[0].numel()
+        out.append(flat_hat[:, off:off + size].reshape(leaf.shape)
+                   .to(leaf.dtype))
+        off += size
+    return tree_unflatten(spec, out)
+
+
+def _unflatten_aggregate_tree(agg: torch.Tensor, tree_spec):
+    """A ``(D,)`` aggregate back to the tree with the client axis reduced
+    away (float32 whatever the leaf dtype, since it feeds the f32
+    update)."""
+    leaves, spec = tree_spec
+    out, off = [], 0
+    for leaf in leaves:
+        size = leaf[0].numel()
+        out.append(agg[off:off + size].reshape(leaf.shape[1:]))
+        off += size
+    return tree_unflatten(spec, out)
+
+
 def transmit_pytree_batch(tree, key: torch.Tensor, cfg: TransportConfig, *,
                           snr_db=None, device=None):
     """Batched pytree uplink: every leaf has a leading client dim; each
@@ -555,30 +862,42 @@ def transmit_pytree_batch(tree, key: torch.Tensor, cfg: TransportConfig, *,
 
     Returns ``(tree_hat, stats)`` with shapes and dtypes restored.
     """
-    flat, (leaves, spec) = _flatten_client_tree(tree)
+    flat, tree_spec = _flatten_client_tree(tree)
     flat_hat, stats = transmit_batch(flat, key, cfg, snr_db=snr_db,
                                      device=device)
-    out, off = [], 0
-    for leaf in leaves:
-        size = leaf[0].numel()
-        out.append(flat_hat[:, off:off + size].reshape(leaf.shape)
-                   .to(leaf.dtype))
-        off += size
-    return tree_unflatten(spec, out), stats
+    return _unflatten_client_tree(flat_hat, tree_spec), stats
 
 
 def transmit_pytree_batch_aggregate(tree, key: torch.Tensor,
                                     cfg: TransportConfig, weights, *,
                                     snr_db=None, device=None):
     """Pytree front-end of :func:`transmit_batch_aggregate`: the aggregate
-    comes back in the tree's structure with the client axis reduced away
-    (float32 whatever the leaf dtype, since it feeds the f32 update)."""
-    flat, (leaves, spec) = _flatten_client_tree(tree)
+    comes back in the tree's structure with the client axis reduced
+    away."""
+    flat, tree_spec = _flatten_client_tree(tree)
     agg, stats = transmit_batch_aggregate(flat, key, cfg, weights,
                                           snr_db=snr_db, device=device)
-    out, off = [], 0
-    for leaf in leaves:
-        size = leaf[0].numel()
-        out.append(agg[off:off + size].reshape(leaf.shape[1:]))
-        off += size
-    return tree_unflatten(spec, out), stats
+    return _unflatten_aggregate_tree(agg, tree_spec), stats
+
+
+def transmit_pytree_batch_adaptive(tree, key: torch.Tensor, cfgs, mode_idx,
+                                   *, snr_db=None, dispatch: str = "auto",
+                                   device=None):
+    """Pytree front-end of :func:`transmit_batch_adaptive`: the entry point
+    the scenario-driven FL rounds feed their gradients through."""
+    flat, tree_spec = _flatten_client_tree(tree)
+    flat_hat, stats = transmit_batch_adaptive(
+        flat, key, cfgs, mode_idx, snr_db=snr_db, dispatch=dispatch,
+        device=device)
+    return _unflatten_client_tree(flat_hat, tree_spec), stats
+
+
+def transmit_pytree_batch_adaptive_aggregate(tree, key: torch.Tensor, cfgs,
+                                             mode_idx, weights, *,
+                                             snr_db=None, device=None):
+    """Pytree front-end of :func:`transmit_batch_adaptive_aggregate` (the
+    scenario-driven fused rounds; globally normalized weights)."""
+    flat, tree_spec = _flatten_client_tree(tree)
+    agg, stats = transmit_batch_adaptive_aggregate(
+        flat, key, cfgs, mode_idx, weights, snr_db=snr_db, device=device)
+    return _unflatten_aggregate_tree(agg, tree_spec), stats

@@ -1,8 +1,8 @@
 """FL round engine (port, part): FedSGD rounds over the wireless uplink.
 
-Counterpart of ``repro.fl.engine`` for the driverless path of
-:class:`RoundEngine` with the :class:`FedSGD` algorithm — the paper's own
-experiment — in both of its round shapes:
+Counterpart of ``repro.fl.engine`` for :class:`RoundEngine` with the
+:class:`FedSGD` algorithm. Driverless runs (no ``scenario=``) are the
+paper's own experiment, in both of its round shapes:
 
 * **layered** (``fused_aggregate=False``): per-client gradients ->
   ``transport.transmit_pytree_batch`` (one K1 launch on the kernel path,
@@ -16,13 +16,40 @@ Each round mirrors the reference as written: the layered round averages
 with a mean over the client axis (a reduction whose order PyTorch does not
 share with XLA), the fused round with the client-order sum of K2.
 
+Scenario runs (``scenario=`` a preset name, a ``Scenario`` or a
+``ScenarioDriver``) add the link step of the reference: each round the
+driver moves every client's SNR, estimates it, picks a mode per client
+from the policy table and draws dropouts and stragglers; the uplink then
+runs the mixed-mode table in one of three round shapes:
+
+* **bucketed layered** (``adaptive_dispatch="bucketed"``): one batch per
+  non-empty mode (``transport.transmit_pytree_batch_adaptive``; one K1
+  launch per uncoded bucket on ``use_kernel`` tables), then
+  :func:`dropout_weighted_mean`;
+* **bucketed fused** (``fused_aggregate=True``): the ``active`` mask
+  normalized over the cohort as weights (dropped clients still transmit,
+  with weight 0), one weighted partial per bucket (one K2 launch per
+  uncoded bucket), the partials added in mode order;
+* **select** (``adaptive_dispatch="select"``): the table with its kernel
+  rows cleared (:func:`select_mode_cfgs`), each mode on exactly its own
+  clients, then :func:`dropout_weighted_mean`. ``fused_aggregate=True``
+  with it raises ``ValueError``, as in the reference.
+
+The per-client airtime is the driver's (mode-priced, straggler-scaled,
+zero for dropped clients), and ``FLResult.link`` holds the reference's
+per-round telemetry dicts. A scenario that brings its own downlink or
+compression raises ``NotImplementedError`` (ROADMAP Queue 1, items 5 and
+6): running it without them would be another experiment.
+
 ECRT with ``simulate_fec=True`` is priced, not decoded, in rounds, as in
 the reference: :func:`resolve_ecrt_analytic` calibrates E[tx] once with
 the real LDPC chain and swaps in the analytic model; a heterogeneous-SNR
 cohort also gets a per-client airtime scale.
 
 The key schedule is the reference's: ``key -> (key, params key)`` at
-start, then ``key -> (key, round key)`` each round; minibatches come from
+start, then (scenario runs) ``key -> (key, link-init key)``, then ``key ->
+(key, round key)`` each round, and inside a scenario round ``round key ->
+(link key, uplink key)``; minibatches come from
 ``numpy.random.default_rng(seed)`` exactly as in the reference.
 
 Each round is timed in phases — gradients, uplink, apply, eval — on the
@@ -30,20 +57,22 @@ host clock after a device synchronise (``FLResult.phase_s``), so the
 numbers are device time for the phase, not enqueue time. The uplink also
 reports two of its parts, timed as spans (``repro_torch.obs.spans``):
 ``uplink_keys``, the per-client key schedule and kernel seeds, and
-``uplink_kernel``, the K1/K2 launch (or its plain version on the CPU; 0 on
-the layered PHY and ECRT, which launch no kernel).
+``uplink_kernel``, the K1/K2 launches (or their plain versions on the
+CPU; 0 on the layered PHY and ECRT, which launch no kernel). Scenario
+rounds add ``link``, the link step on the host.
 
 The round key stays on the CPU, so the key schedule (a few hundred int64
-ops on ``num_clients`` elements) runs on the host and only the seeds
-cross to the device: each op costs less there than a launch on the GPU
-(measured by ``chip_smoke.py``, phase 6; see PERF.md). ``prng`` follows
+ops on ``num_clients`` elements) and the link step run on the host and
+only the seeds, the SNRs and the ``active`` weights cross to the device:
+each op costs less there than a launch on the GPU (measured by
+``chip_smoke.py``, phases 5d and 6; see PERF.md). ``prng`` follows
 its key's device, so moving the key moves the schedule; the layered PHY
 moves the client keys to the payload's device, where it draws per symbol.
 
 Not ported yet (raise ``NotImplementedError`` naming the ROADMAP item):
-``scenario=``, ``downlink=``, ``compression=``, ``ledger=``,
-``phase_timers=`` and ``sketches=``; ``FedAvg`` and the asynchronous
-engine.
+``downlink=``, ``compression=``, ``ledger=``, ``phase_timers=`` and
+``sketches=``; ``FedAvg`` and the asynchronous engine; the typed
+``RoundRecord`` view of ``FLResult.link`` (item 8).
 """
 
 from __future__ import annotations
@@ -64,10 +93,11 @@ from repro_torch.fl import cnn
 from repro_torch.obs import spans
 from repro_torch.optim.sgd import sgd as make_sgd
 
-__all__ = ["FLResult", "FedSGD", "RoundEngine", "resolve_ecrt_analytic"]
+__all__ = ["FLResult", "FedSGD", "RoundEngine", "resolve_ecrt_analytic",
+           "resolve_scenario", "select_mode_cfgs", "dropout_weighted_mean",
+           "link_telemetry"]
 
 _NOT_PORTED = {
-    "scenario": "ROADMAP Queue 1, item 4 'Link adaptation'",
     "downlink": "ROADMAP Queue 1, item 5 'FedAvg and the downlink'",
     "compression": "ROADMAP Queue 1, item 6 'compress/'",
     "ledger": "ROADMAP Queue 1, item 8 'obs/'",
@@ -87,8 +117,66 @@ class FLResult:
     final_accuracy: float
     # One dict per round: seconds spent in "gradients", "uplink", "apply"
     # and "eval" (0.0 on rounds without an eval), each closed by a device
-    # synchronise; "uplink_keys" and "uplink_kernel" are parts of "uplink".
+    # synchronise; "uplink_keys" and "uplink_kernel" are parts of "uplink";
+    # scenario rounds add "link", the host-side link step.
     phase_s: list = dataclasses.field(default_factory=list)
+    # Scenario runs: one dict per round, {round, mean_snr_db, mean_est_db,
+    # mode_counts, n_active, n_stragglers, airtime_s} (mode_counts indexes
+    # the driver's mode table). [] otherwise.
+    link: list = dataclasses.field(default_factory=list)
+
+
+def resolve_scenario(scenario, transport_cfg, device=None):
+    """``scenario=`` argument -> a bound ``ScenarioDriver`` (or ``None``):
+    a registered name, a ``Scenario`` or a ready driver. ECRT calibration,
+    if the scenario asks for it, runs on ``device``."""
+    if scenario is None:
+        return None
+    from repro_torch.link import scenario as scenario_lib
+
+    if isinstance(scenario, scenario_lib.ScenarioDriver):
+        return scenario
+    if isinstance(scenario, str):
+        scenario = scenario_lib.get_scenario(scenario)
+    return scenario_lib.ScenarioDriver(scenario, transport_cfg, device=device)
+
+
+def dropout_weighted_mean(tree, active):
+    """Mean of ``(M, ...)`` leaves over the active clients only:
+    ``tensordot(active, g) / max(sum(active), 1)``; an all-dropped round
+    gives zeros. The contraction is PyTorch's, deterministic on a device
+    but not in XLA's order (Trajectory grade against the reference)."""
+    leaves, spec = transport_lib.tree_flatten(tree)
+    active = torch.as_tensor(active, dtype=torch.float32).to(
+        leaves[0].device)
+    denom = torch.clamp_min(active.sum(), 1.0)
+    return transport_lib.tree_unflatten(spec, [
+        torch.tensordot(active, g, dims=([0], [0])) / denom for g in leaves])
+
+
+def link_telemetry(r: int, rnd, per_client_air, n_modes: int) -> dict:
+    """One ``FLResult.link`` record from a round's ``LinkRound`` and
+    airtime; numpy reductions as the reference's."""
+    def host(t):
+        return np.asarray(t.cpu() if isinstance(t, torch.Tensor) else t)
+
+    mode = host(rnd.mode)
+    return {
+        "round": r,
+        "mean_snr_db": float(np.mean(host(rnd.snr_db))),
+        "mean_est_db": float(np.mean(host(rnd.est_db))),
+        "mode_counts": np.bincount(mode, minlength=n_modes).tolist(),
+        "n_active": int(host(rnd.active).sum()),
+        "n_stragglers": int(host(rnd.straggler).sum()),
+        "airtime_s": float(host(per_client_air).sum()),
+    }
+
+
+def select_mode_cfgs(driver):
+    """The driver's mode table for the select dispatch: kernel rows
+    cleared (``transport.clear_kernel_rows``), so a select round runs the
+    layered PHY and is not bit-comparable to a bucketed kernel round."""
+    return transport_lib.clear_kernel_rows(driver.mode_cfgs)
 
 
 def resolve_ecrt_analytic(transport_cfg, num_clients: int, device=None):
@@ -167,24 +255,25 @@ def _sync(device: torch.device) -> None:
 
 
 class RoundEngine:
-    """Driverless FL round driver (the paper's static single-mode uplink).
+    """FL round driver: driverless (the paper's static single-mode uplink)
+    or scenario-driven (per-client link adaptation).
 
     Args mirror the reference's ``RoundEngine``; ``device`` picks where the
     model, gradients and uplink run (``None`` is the GPU). The arguments of
-    parts not ported yet must stay at their defaults; ``adaptive_dispatch``,
-    which only shapes ``scenario=`` rounds, comes with ``scenario=``.
+    parts not ported yet must stay at their defaults.
     """
 
     def __init__(self, algorithm, transport_cfg, client_x, client_y,
                  test_x, test_y, *, n_rounds: int, seed: int = 0,
                  eval_every: int = 2,
                  timings: latency_lib.PhyTimings | None = None,
-                 scenario=None, downlink=None, compression=None,
+                 scenario=None, adaptive_dispatch: str = "bucketed",
+                 downlink=None, compression=None,
                  fused_aggregate: bool = False, ledger=None,
                  phase_timers=None, sketches=None, device=None):
-        given = dict(scenario=scenario, downlink=downlink,
-                     compression=compression, ledger=ledger,
-                     phase_timers=phase_timers, sketches=sketches)
+        given = dict(downlink=downlink, compression=compression,
+                     ledger=ledger, phase_timers=phase_timers,
+                     sketches=sketches)
         for name, value in given.items():
             if value is not None:
                 raise NotImplementedError(
@@ -193,12 +282,34 @@ class RoundEngine:
             raise NotImplementedError(
                 "only FedSGD is ported: FedAvg is ROADMAP Queue 1, item 5 "
                 "'FedAvg and the downlink'")
+        if adaptive_dispatch not in ("bucketed", "select"):
+            raise ValueError(
+                f"adaptive_dispatch must be bucketed|select, got "
+                f"{adaptive_dispatch!r}")
+        self.dispatch = adaptive_dispatch
         transport_lib._check_mode(transport_cfg)
         self.device = resolve_device(device)
         self.algo = algorithm
         self.num_clients = client_x.shape[0]
-        transport_cfg, self.ecrt_air_scale = resolve_ecrt_analytic(
-            transport_cfg, self.num_clients, self.device)
+        self.fused_aggregate = bool(fused_aggregate)
+        self.driver = resolve_scenario(scenario, transport_cfg, self.device)
+        if self.driver is not None:
+            scen = self.driver.scenario
+            for name in ("downlink", "compression"):
+                if getattr(scen, name) is not None:
+                    raise NotImplementedError(
+                        f"scenario {scen.name!r} brings its own {name}, "
+                        f"which is not ported yet: {_NOT_PORTED[name]}")
+            if self.fused_aggregate and self.dispatch != "bucketed":
+                raise ValueError(
+                    "fused_aggregate=True needs adaptive_dispatch="
+                    "'bucketed' for scenario runs: the select dispatch has "
+                    "no kernel rows to fuse into")
+            self.select_cfgs = select_mode_cfgs(self.driver)
+            self.ecrt_air_scale = None
+        else:
+            transport_cfg, self.ecrt_air_scale = resolve_ecrt_analytic(
+                transport_cfg, self.num_clients, self.device)
         self.transport_cfg = transport_cfg
         self.client_x, self.client_y = client_x, client_y
         self.test_x = torch.as_tensor(test_x).to(self.device)
@@ -208,7 +319,6 @@ class RoundEngine:
         self.seed = seed
         self.eval_every = eval_every
         self.timings = timings or latency_lib.PhyTimings()
-        self.fused_aggregate = bool(fused_aggregate)
         # Uniform cohort weights, normalized once (the reference's
         # build-time constant of the fused round).
         self.uniform_w = aggregation_lib.normalize_weights(
@@ -219,6 +329,10 @@ class RoundEngine:
         key, pk = prng.split(key)
         self.params = algorithm.init_params(pk, self.device)
         self.aux = algorithm.init_opt(self.params)
+        if self.driver is not None:
+            key, lk = prng.split(key)
+            self.lstate, self.prev_mode, self.prev_est = self.driver.init(
+                lk, self.num_clients)
         self._key = key
 
     def _uplink(self, payload, key):
@@ -231,6 +345,26 @@ class RoundEngine:
             payload, key, tcfg, device=self.device)
         return {k: g.mean(dim=0) for k, g in hat.items()}, stats
 
+    def _uplink_scenario(self, payload, key, rnd):
+        """One scenario round's mixed-mode uplink + aggregation under the
+        engine's dispatch: ``(aggregate tree, stats)``."""
+        dev, drv = self.device, self.driver
+        active = rnd.active.to(dev)
+        if self.dispatch == "select":
+            hat, stats = transport_lib.transmit_pytree_batch_adaptive(
+                payload, key, self.select_cfgs, rnd.mode, snr_db=rnd.snr_db,
+                dispatch="select", device=dev)
+            return dropout_weighted_mean(hat, active), stats
+        if self.fused_aggregate:
+            return transport_lib.transmit_pytree_batch_adaptive_aggregate(
+                payload, key, drv.mode_cfgs, rnd.mode,
+                aggregation_lib.normalize_weights(active), snr_db=rnd.snr_db,
+                device=dev)
+        hat, stats = transport_lib.transmit_pytree_batch_adaptive(
+            payload, key, drv.mode_cfgs, rnd.mode, snr_db=rnd.snr_db,
+            dispatch="bucketed", device=dev)
+        return dropout_weighted_mean(hat, active), stats
+
     def run(self) -> FLResult:
         """Drive ``n_rounds`` rounds and return the :class:`FLResult`."""
         algo, dev = self.algo, self.device
@@ -239,16 +373,27 @@ class RoundEngine:
         res = FLResult([], [], [], 0.0, 0.0)
         t_start = time.perf_counter()
         cum_air = 0.0
+        driver = self.driver
         for r in range(self.n_rounds):
             key, rk = prng.split(key)
             xb, yb = algo.sample(rng, self.client_x, self.client_y, dev)
             phases = {}
+            if driver is not None:
+                t_link = time.perf_counter()
+                k_link, k_tx = prng.split(rk)
+                self.lstate, rnd = driver.round(
+                    self.lstate, self.prev_mode, self.prev_est, k_link)
+                self.prev_mode, self.prev_est = rnd.mode, rnd.est_db
+                phases["link"] = time.perf_counter() - t_link
             t0 = time.perf_counter()
             payload = algo.payload(params, xb, yb)
             _sync(dev)
             t1 = time.perf_counter()
             with spans.collect(dev) as parts:
-                agg, stats = self._uplink(payload, rk)
+                if driver is None:
+                    agg, stats = self._uplink(payload, rk)
+                else:
+                    agg, stats = self._uplink_scenario(payload, k_tx, rnd)
             _sync(dev)
             t2 = time.perf_counter()
             params, aux = algo.apply(params, aux, agg)
@@ -259,12 +404,17 @@ class RoundEngine:
                           uplink_kernel=parts.get("kernel", 0.0),
                           apply=t3 - t2, eval=0.0)
             # TDMA uplink: total airtime is the sum over clients.
-            per_client_air = latency_lib.round_airtime(
-                stats, self.timings, self.transport_cfg.mode)
-            if self.ecrt_air_scale is not None:
-                # Heterogeneous analytic ECRT: rescale each client's
-                # airtime from the cohort-mean E[tx] to its own value.
-                per_client_air = per_client_air * self.ecrt_air_scale
+            if driver is not None:
+                per_client_air = driver.airtime(stats, rnd, self.timings)
+                res.link.append(link_telemetry(r, rnd, per_client_air,
+                                               len(driver.mode_cfgs)))
+            else:
+                per_client_air = latency_lib.round_airtime(
+                    stats, self.timings, self.transport_cfg.mode)
+                if self.ecrt_air_scale is not None:
+                    # Heterogeneous analytic ECRT: rescale each client's
+                    # airtime from the cohort-mean E[tx] to its own value.
+                    per_client_air = per_client_air * self.ecrt_air_scale
             cum_air += float(torch.sum(per_client_air))
             if r % self.eval_every == 0 or r == self.n_rounds - 1:
                 t4 = time.perf_counter()

@@ -12,7 +12,10 @@ One round (paper Sec. II):
 
 The paper's Fig. 3 compares three arms at one SNR: ``approx`` and
 ``naive`` on the layered PHY, and ``ecrt`` (``simulate_fec=True``, which
-the engine resolves to the calibrated analytic model).
+the engine resolves to the calibrated analytic model). With
+``scenario=`` each round first moves every client's SNR, estimates it
+and picks each client's mode (ECRT / approx QPSK / 16-QAM / 256-QAM) with
+dropouts and stragglers; the uplink then runs per mode bucket.
 
 Counterpart of ``repro.fl.loop.run_fl``: a thin façade over
 :class:`~repro_torch.fl.engine.RoundEngine` with :class:`FedSGD`.
@@ -43,6 +46,7 @@ def run_fl(
     eval_every: int = 2,
     timings: latency_lib.PhyTimings | None = None,
     scenario=None,
+    adaptive_dispatch: str = "bucketed",
     downlink=None,
     compression=None,
     fused_aggregate: bool = False,
@@ -62,13 +66,19 @@ def run_fl(
       n_rounds / batch_per_round / seed: round count, per-round minibatch
         size, and the seed driving params/keys/batch sampling.
       timings: PHY timing model for airtime pricing.
-      fused_aggregate: fold the PS aggregation into the uplink (K2).
+      scenario: ``None`` for the paper's static single-mode uplink, else a
+        scenario name, ``Scenario`` or ``ScenarioDriver``: per-round link
+        adaptation, with telemetry in ``FLResult.link``. A scenario that
+        brings a downlink or compression raises ``NotImplementedError``.
+      adaptive_dispatch: ``"bucketed"`` (one batch per mode bucket, one
+        K1/K2 launch per uncoded bucket on ``use_kernel`` tables) or
+        ``"select"`` (kernel rows cleared; layered PHY).
+      fused_aggregate: fold the PS aggregation into the uplink (K2);
+        scenario runs need the bucketed dispatch for it.
       device: where to run; ``None`` is the GPU.
-      scenario / downlink / compression / ledger / phase_timers /
-        sketches: not ported yet; anything but ``None`` raises
-        ``NotImplementedError`` naming the ROADMAP item. The reference's
-        ``adaptive_dispatch`` only shapes ``scenario=`` rounds and comes
-        with them.
+      downlink / compression / ledger / phase_timers / sketches: not
+        ported yet; anything but ``None`` raises ``NotImplementedError``
+        naming the ROADMAP item (5, 6, 8).
 
     Returns:
       :class:`~repro_torch.fl.engine.FLResult`.
@@ -77,7 +87,8 @@ def run_fl(
     return engine_lib.RoundEngine(
         algo, transport_cfg, client_x, client_y, test_x, test_y,
         n_rounds=n_rounds, seed=seed, eval_every=eval_every, timings=timings,
-        scenario=scenario, downlink=downlink, compression=compression,
+        scenario=scenario, adaptive_dispatch=adaptive_dispatch,
+        downlink=downlink, compression=compression,
         fused_aggregate=fused_aggregate, ledger=ledger,
         phase_timers=phase_timers, sketches=sketches, device=device,
     ).run()

@@ -11,6 +11,12 @@ error counts and the aggregate. Words may differ only where a demod
 pre-round value lies within ``EDGE`` of a half-integer; the noiseless row
 must match exactly.
 
+The mixed-mode uplink of link adaptation runs one K1 launch (K2 when
+fused) per non-empty uncoded mode bucket, at the bucket's capacity with
+its tail masked and per-client SNR: on the card it equals the CPU plain
+path under the same edge rule (the noise powers are computed on each
+device), and the launch counters move once per bucket.
+
 The layered PHY and the ECRT chain, which launch no kernel, are held
 against themselves on the CPU: the layered batch under the same edge rule
 with the tolerance of ``layered_edge`` (its normals, ``torch.erfinv``, are
@@ -413,3 +419,129 @@ def test_fig3_arms_launch_no_kernel(cuda_device, mode):
     assert TAC.launch_counts() == {"k0": 0, "k1": 0, "k2": 0}
     assert all(np.isfinite(res.accuracy))
     assert all(np.isfinite(res.airtime_s))
+
+
+def _adaptive_world(m=37, n=3000, seed=0):
+    """A kernel mode table (ECRT row at a fixed E[tx]), per-client SNR,
+    modes with every row present and an empty ECRT-free stretch."""
+    from repro_torch.link import policy as TP
+
+    base = TT.TransportConfig(mode="approx", use_kernel=True,
+                              channel=TCH.ChannelConfig(snr_db=10.0))
+    cfgs = TP.build_mode_cfgs(base, TP.PolicyConfig(), ecrt_expected_tx=2.0,
+                              device="cpu")
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.uniform(-0.9, 0.9, (m, n)).astype(np.float32))
+    modes = rng.integers(0, 4, m)
+    snr = torch.from_numpy(rng.uniform(0, 30, m).astype(np.float32))
+    return cfgs, x, modes, snr
+
+
+def _uncoded_buckets(cfgs, modes):
+    return sum(1 for mm, c in enumerate(cfgs)
+               if c.mode in ("approx", "naive") and (modes == mm).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True])
+def test_adaptive_bucketed_card_vs_cpu(cuda_device, fused):
+    from repro_torch.core import aggregation as TAG
+    from repro_torch.core import prng as P
+
+    cfgs, x, modes, snr = _adaptive_world(seed=int(fused))
+    key = P.PRNGKey(21)
+    TAC.reset_launch_counts()
+    if fused:
+        w = TAG.normalize_weights(torch.ones(x.shape[0]))
+        ag, sg = TT.transmit_batch_adaptive_aggregate(
+            x, key, cfgs, modes, w.to(cuda_device), snr_db=snr)
+    else:
+        xg, sg = TT.transmit_batch_adaptive(x, key, cfgs, modes, snr_db=snr)
+    counts = TAC.launch_counts()
+    want = _uncoded_buckets(cfgs, modes)
+    assert counts == {"k0": 0, "k1": 0 if fused else want,
+                      "k2": want if fused else 0}
+    xc, sc = TT.transmit_batch_adaptive(x, key, cfgs, modes, snr_db=snr,
+                                        device="cpu")
+    keys = TT.client_keys(key, x.shape[0])
+    edges = torch.full(x.shape, float("inf"))
+    for mm, cfg in enumerate(cfgs):
+        idx = torch.from_numpy(np.nonzero(modes == mm)[0])
+        if idx.numel() == 0 or cfg.mode == "ecrt":
+            continue
+        n = x.shape[1]
+        xp = torch.nn.functional.pad(x[idx], (0, (-n) % 1024))
+        wb, mask, k = TO._transport_kernel_params(cfg)
+        npow, gains = TO._link_params(cfg, idx.numel(), snr[idx],
+                                      torch.device("cpu"))
+        _, _, e = TR.approx_channel_batch_ref(
+            xp, TO._seed_from_key(keys[idx]), npow, gains, bits_per_symbol=k,
+            clamp_mask=mask, with_edges=True)
+        edges[idx] = e[:, :n]
+    for f in ("data_symbols", "transmissions", "n_bits", "bits_on_air",
+              "mode_idx"):
+        assert torch.equal(getattr(sg, f).cpu(), getattr(sc, f))
+    if fused:
+        calm = (edges >= EDGE).all(dim=0)
+        lay = TT._bucketed_adaptive_aggregate(
+            x, keys, cfgs, modes, TCH.snr_db_vector(snr, x.shape[0]),
+            w)[0]
+        assert torch.equal(_bits(ag.cpu())[calm], _bits(lay)[calm])
+    else:
+        diff = _bits(xg.cpu()) != _bits(xc)
+        assert bool((edges[diff] < EDGE).all())
+        if not bool(diff.any()):
+            assert torch.equal(sg.bit_errors.cpu(), sc.bit_errors)
+
+
+@pytest.mark.cuda
+def test_adaptive_select_launches_nothing_and_equals_bucketed(cuda_device):
+    from repro_torch.core import prng as P
+
+    cfgs, x, modes, snr = _adaptive_world(m=20, n=1500, seed=3)
+    cleared = TT.clear_kernel_rows(cfgs)
+    TAC.reset_launch_counts()
+    xs, ss = TT.transmit_batch_adaptive(x, P.PRNGKey(2), cleared, modes,
+                                        snr_db=snr, dispatch="select")
+    assert TAC.launch_counts() == {"k0": 0, "k1": 0, "k2": 0}
+    xb, sb = TT.transmit_batch_adaptive(x, P.PRNGKey(2), cleared, modes,
+                                        snr_db=snr, dispatch="bucketed")
+    assert torch.equal(_bits(xs), _bits(xb))
+    assert torch.equal(ss.bit_errors, sb.bit_errors)
+    with pytest.raises(ValueError, match="select"):
+        TT.transmit_batch_adaptive(x, P.PRNGKey(2), cfgs, modes,
+                                   dispatch="select")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True])
+def test_scenario_run_fl_launches_once_per_bucket(cuda_device, fused):
+    import dataclasses
+
+    from repro_torch.configs.mnist_cnn import config
+    from repro_torch.fl.loop import run_fl
+    from repro_torch.link import scenario as TS
+
+    rng = np.random.default_rng(0)
+    cx = rng.uniform(0, 1, (12, 16, 28, 28)).astype(np.float32)
+    cy = rng.integers(0, 10, (12, 16)).astype(np.int32)
+    cfg = TT.TransportConfig(mode="approx", use_kernel=True,
+                             channel=TCH.ChannelConfig(snr_db=10.0))
+    scen = dataclasses.replace(TS.get_scenario("vehicular"),
+                               ecrt_expected_tx=2.0)
+    TAC.reset_launch_counts()
+    res = run_fl(config(), cfg, cx, cy, cx[0], cy[0], n_rounds=3,
+                 batch_per_round=8, eval_every=1, scenario=scen,
+                 fused_aggregate=fused)
+    buckets = sum(sum(1 for c in r["mode_counts"][1:] if c)
+                  for r in res.link)
+    want = ({"k0": 0, "k1": 0, "k2": buckets} if fused
+            else {"k0": 0, "k1": buckets, "k2": 0})
+    assert buckets > 0 and TAC.launch_counts() == want
+    b = run_fl(config(), cfg, cx, cy, cx[0], cy[0], n_rounds=3,
+               batch_per_round=8, eval_every=1, scenario=scen,
+               fused_aggregate=fused, device="cpu")
+    assert [r["mode_counts"] for r in res.link] == [
+        r["mode_counts"] for r in b.link]
+    assert all(abs(p - q) <= 2 / 16 + 1e-6
+               for p, q in zip(res.accuracy, b.accuracy))

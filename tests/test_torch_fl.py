@@ -16,6 +16,12 @@
   The same holds for the paper's Fig. 3 arms — approx and naive on the
   layered PHY, ECRT resolved by the engine to its calibrated analytic
   model — given equal E[tx] (asserted).
+* A 3-round scenario run (``vehicular`` at a fixed E[tx] with 10%
+  dropout, 6 clients) under each round shape — bucketed layered (K1 per
+  bucket), bucketed fused (K2 per bucket) and select (layered PHY): the
+  per-round ``mode_counts``, ``n_active`` and ``n_stragglers`` Exact,
+  ``mean_snr_db`` / ``mean_est_db`` Bounded (the normals), airtime and
+  accuracy as above.
 """
 
 import dataclasses
@@ -36,6 +42,7 @@ from repro.fl import cnn as JC  # noqa: E402
 from repro.fl import engine as JEN  # noqa: E402
 from repro.fl import partition as j_partition  # noqa: E402
 from repro.fl.loop import run_fl as j_run_fl  # noqa: E402
+from repro.link import scenario as JS  # noqa: E402
 from repro.optim.sgd import sgd as j_sgd  # noqa: E402
 from repro_torch.configs.mnist_cnn import config as t_config  # noqa: E402
 from repro_torch.convert import params_from_jax, params_to_numpy  # noqa: E402
@@ -47,6 +54,7 @@ from repro_torch.fl import cnn as TC  # noqa: E402
 from repro_torch.fl import engine as TE  # noqa: E402
 from repro_torch.fl import partition as t_partition  # noqa: E402
 from repro_torch.fl.loop import run_fl as t_run_fl  # noqa: E402
+from repro_torch.link import scenario as TS  # noqa: E402
 
 ACC_TOL = 2 / 160 + 1e-6
 
@@ -255,3 +263,50 @@ def _tiny_world():
     cx = rng.uniform(0, 1, (4, 8, 28, 28)).astype(np.float32)
     cy = rng.integers(0, 10, (4, 8)).astype(np.int32)
     return cx, cy, cx[0], cy[0]
+
+
+@pytest.fixture(scope="module")
+def world6():
+    (img, lab), (ti, tl) = j_synth.train_test(60, 16, seed=0)
+    parts = j_partition.non_iid_partition(img, lab, n_clients=6)
+    cx, cy = j_partition.stack_clients(parts, per_client=16)
+    return cx, cy, ti, tl
+
+
+@pytest.mark.parametrize("dispatch,fused", [
+    ("bucketed", False), ("bucketed", True), ("select", False)])
+def test_scenario_run_vs_reference(world6, dispatch, fused):
+    cx, cy, ti, tl = world6
+    kw = dict(n_rounds=3, batch_per_round=8, eval_every=1, seed=3,
+              adaptive_dispatch=dispatch, fused_aggregate=fused)
+    js = dataclasses.replace(JS.get_scenario("vehicular"),
+                             ecrt_expected_tx=2.0, dropout_prob=0.1)
+    ts = dataclasses.replace(TS.get_scenario("vehicular"),
+                             ecrt_expected_tx=2.0, dropout_prob=0.1)
+    jc = JT.TransportConfig(mode="approx", use_kernel=True,
+                            channel=JCH.ChannelConfig(snr_db=10.0))
+    tc = TT.TransportConfig(mode="approx", use_kernel=True,
+                            channel=TCH.ChannelConfig(snr_db=10.0))
+    a = j_run_fl(dataclasses.replace(j_config(), lr=0.1), jc, cx, cy, ti, tl,
+                 scenario=js, **kw)
+    b = t_run_fl(dataclasses.replace(t_config(), lr=0.1), tc, cx, cy, ti, tl,
+                 scenario=ts, device="cpu", **kw)
+    assert a.rounds == b.rounds == [0, 1, 2]
+    assert len(a.link) == len(b.link) == 3
+    for lj, lt in zip(a.link, b.link):
+        assert list(lt) == list(lj)
+        for f in ("round", "mode_counts", "n_active", "n_stragglers"):
+            assert lt[f] == lj[f], f
+        for f in ("mean_snr_db", "mean_est_db"):
+            assert lt[f] == pytest.approx(lj[f], abs=1e-4), f
+        assert lt["airtime_s"] == pytest.approx(lj["airtime_s"],
+                                                rel=2**-20)
+    print(f"{dispatch} fused={fused}: modes "
+          f"{[l['mode_counts'] for l in b.link]}, active "
+          f"{[l['n_active'] for l in b.link]}; reference {a.accuracy}, "
+          f"port {b.accuracy}")
+    assert sum(l["n_active"] for l in b.link) < 18  # dropout happened
+    np.testing.assert_allclose(b.accuracy, a.accuracy, rtol=0, atol=ACC_TOL)
+    np.testing.assert_allclose(b.airtime_s, a.airtime_s, rtol=2**-20)
+    assert set(b.phase_s[0]) == {"link", "gradients", "uplink", "uplink_keys",
+                                 "uplink_kernel", "apply", "eval"}

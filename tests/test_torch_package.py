@@ -6,7 +6,9 @@
 * Entry points run on the GPU unless asked for the CPU: without a GPU
   they raise, with ``device="cpu"`` they run.
 * Engine arguments not ported yet raise ``NotImplementedError`` naming
-  the ROADMAP item; an unknown transport mode raises ``ValueError``.
+  the ROADMAP item (so does a scenario that brings a downlink or
+  compression); an unknown transport mode, dispatch, or ``fused_aggregate``
+  with the select dispatch raises ``ValueError``.
 """
 
 import ast
@@ -24,6 +26,7 @@ from repro_torch.core import prng as P  # noqa: E402
 from repro_torch.core import transport as TT  # noqa: E402
 from repro_torch.fl import engine as TE  # noqa: E402
 from repro_torch.fl.loop import run_fl  # noqa: E402
+from repro_torch.link import policy as TP  # noqa: E402
 
 @pytest.fixture(scope="module", autouse=True)
 def one_thread():
@@ -70,7 +73,9 @@ def test_port_covers_its_modules():
     for mod in ("core/prng.py", "core/transport.py", "core/ecrt.py",
                 "core/bounds.py", "core/latency.py", "kernels/ref.py",
                 "kernels/approx_channel.py", "kernels/ops.py",
-                "fl/engine.py", "fl/loop.py", "convert.py"):
+                "fl/engine.py", "fl/loop.py", "convert.py",
+                "link/dynamics.py", "link/estimator.py", "link/policy.py",
+                "link/scenario.py", "compress/sparsify.py"):
         assert mod in names
     assert (ROOT / "src/repro_torch/kernels/csrc/approx_channel.cu").exists()
 
@@ -101,11 +106,31 @@ def test_entry_points_need_a_gpu_unless_asked(monkeypatch):
                                     torch.full((2,), 0.5))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         run_fl(config(), _approx(), *_world(), n_rounds=1, batch_per_round=4)
+    table = TP.build_mode_cfgs(_approx(), TP.PolicyConfig(),
+                               ecrt_expected_tx=2.0, device="cpu")
+    modes = np.asarray([1, 3])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TT.transmit_batch_adaptive(x, P.PRNGKey(0), table, modes)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TT.transmit_batch_adaptive_aggregate(x, P.PRNGKey(0), table, modes,
+                                             torch.full((2,), 0.5))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        # calibrates E[tx] for the ECRT row, on the GPU by default
+        TP.build_mode_cfgs(_approx(), TP.PolicyConfig())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_fl(config(), _approx(), *_world(), n_rounds=1, batch_per_round=4,
+               scenario="vehicular")
     out, _ = TT.transmit_batch(x, P.PRNGKey(0), _approx(), device="cpu")
     assert out.device.type == "cpu"
+    out, st = TT.transmit_batch_adaptive(x, P.PRNGKey(0), table, modes,
+                                         device="cpu")
+    assert out.device.type == "cpu" and st.mode_idx.tolist() == [1, 3]
     res = run_fl(config(), _approx(), *_world(), n_rounds=1,
                  batch_per_round=4, device="cpu")
     assert np.isfinite(res.final_accuracy)
+    res = run_fl(config(), _approx(), *_world(), n_rounds=1,
+                 batch_per_round=4, scenario="vehicular", device="cpu")
+    assert np.isfinite(res.final_accuracy) and len(res.link) == 1
 
 
 def test_kernel_wrappers_reject_other_devices():
@@ -170,20 +195,37 @@ def test_unknown_mode_raises():
 @pytest.mark.parametrize("arg", ["scenario", "downlink", "compression",
                                  "ledger", "phase_timers", "sketches"])
 def test_unported_engine_arguments_raise(arg):
+    """``scenario=`` is ported; a scenario that brings a downlink still
+    raises, naming the downlink's item."""
+    value = "static-noisy-dl" if arg == "scenario" else object()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         run_fl(config(), _approx(), *_world(), n_rounds=1, device="cpu",
-               **{arg: object()})
+               **{arg: value})
+
+
+@pytest.mark.parametrize("name,item", [
+    ("static-noisy-dl", "item 5"), ("vehicular-noisy-dl", "item 5"),
+    ("iot-lowrate", "item 6")])
+def test_scenarios_with_unported_legs_raise(name, item):
+    with pytest.raises(NotImplementedError, match=item):
+        run_fl(config(), _approx(), *_world(), n_rounds=1, device="cpu",
+               scenario=name)
 
 
 def test_perfect_mode_runs_without_kernels():
     res = run_fl(config(), TT.TransportConfig(mode="perfect"), *_world(),
                  n_rounds=2, batch_per_round=4, eval_every=1, device="cpu")
-    assert res.rounds == [0, 1]
-    # adaptive_dispatch comes with scenario=: until then it is no argument.
-    with pytest.raises(TypeError, match="adaptive_dispatch"):
+    assert res.rounds == [0, 1] and res.link == []
+    # adaptive_dispatch is checked as the reference checks it, and
+    # fused_aggregate needs the bucketed dispatch on scenario runs.
+    with pytest.raises(ValueError, match="adaptive_dispatch"):
         TE.RoundEngine(TE.FedSGD(config()), TT.TransportConfig(mode="perfect"),
-                       *_world(), n_rounds=1, adaptive_dispatch="bucketed",
+                       *_world(), n_rounds=1, adaptive_dispatch="sideways",
                        device="cpu")
+    with pytest.raises(ValueError, match="bucketed"):
+        run_fl(config(), _approx(), *_world(), n_rounds=1, device="cpu",
+               scenario="static", adaptive_dispatch="select",
+               fused_aggregate=True)
 
 
 def test_uplink_parts_lie_within_the_uplink():
