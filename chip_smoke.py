@@ -5,7 +5,8 @@
     python3 chip_smoke.py --cpu    # rehearsal on the CPU, at small sizes
 
 Drives the port (``src/repro_torch``) through its main path — the paper's
-FedSGD rounds over the approximate uplink — and holds both CUDA kernels
+FedSGD rounds over the approximate uplink, then the link-adaptation,
+FedAvg and downlink rounds built on it — and holds both CUDA kernels
 against their plain PyTorch versions. Phases, each of which fails the run
 (non-zero exit) when it fails:
 
@@ -65,6 +66,25 @@ against their plain PyTorch versions. Phases, each of which fails the run
    versions as in phase 3+4; bucketed with kernel rows cleared against
    select, bit for bit; a 6-client scenario run on the card against the
    CPU plain path; the link step timed on the host and on the card.
+5e. FedAvg and the downlink broadcast at full width (the same world and
+   base): (a) FedAvg (4 local steps of 32) layered ``none``, fused
+   ``none`` and layered ``max_abs``; (b) FedSGD and FedAvg behind an
+   approx downlink at the uplink's SNR, layered and fused; (c)
+   ``static-noisy-dl`` and ``vehicular-noisy-dl`` with FedAvg under
+   bucketed layered, bucketed fused and select; 3 rounds each. Per
+   round: K1 launches = the broadcast's kernel buckets (one for a
+   single-mode ``use_kernel`` downlink, under every dispatch as in the
+   reference; one per non-empty uncoded downlink bucket of an adaptive
+   downlink, none under select) + the uplink's on layered rounds, K2 =
+   the uplink's on fused rounds; phases (with ``downlink``,
+   ``downlink_keys`` and ``downlink_kernel``), modes and downlink modes;
+   each run's peak memory. Then ``payload`` against ``payload_from``
+   for both algorithms, timed; (d) round 0's broadcast at the main-path
+   shape through ``transmit_broadcast`` (K1) against the plain K1 on the
+   same tile, and again at N = 22,528 (whole tiles): 0 differing words;
+   a perfect downlink equal to no downlink bit for bit (FedSGD layered,
+   FedAvg fused); a 6-client FedAvg ``max_abs`` run on
+   ``vehicular-noisy-dl`` on the card against the CPU plain path.
 6. Times at the main-path shape (C=100, N=22,528, QPSK, f32; K0 at C=1):
    kernel and plain version with CUDA events (median of single launches
    after a warm-up), each kernel's bound from bytes and operations, the
@@ -72,8 +92,9 @@ against their plain PyTorch versions. Phases, each of which fails the run
    per-round key schedule (client keys + kernel seeds) on the host and on
    the card; then K1 and K2 at each bucket shape of phase 5d's round 0
    (one median per k, capacity and ``num_active``) beside their bounds.
-7. The result: a JSON line of the kernels, ``nvidia-smi``'s line, and as
-   the last line ``{"ok": true, "device": {...}}``.
+7. The result: a JSON line of the kernels (``launches`` counts phase 5's
+   and phase 5e's runs), ``nvidia-smi``'s line, and as the last line
+   ``{"ok": true, "device": {...}}``.
 
 Needs one GPU, no network, and finishes in a few minutes. Exits non-zero,
 printing no result, without a GPU or outside a checkout of the repository.
@@ -859,9 +880,10 @@ def _round0_uplink_key(seed: int):
 
 
 def _scenario_run(torch, device, cx, cy, ti, tl, scen, rounds, dispatch,
-                  fused, capture=None):
-    """One scenario run through ``RoundEngine``: launch counts per round
-    (read after each round's uplink), the result, and the peak memory."""
+                  fused, capture=None, algo=None, downlink=None):
+    """One run through ``RoundEngine`` (FedSGD unless ``algo`` is given;
+    driverless with ``scen=None``): launch counts per round (read after
+    each round's uplink), the result, the peak memory and the engine."""
     from repro_torch.configs.mnist_cnn import config
     from repro_torch.core import channel, transport
     from repro_torch.fl import engine
@@ -870,11 +892,13 @@ def _scenario_run(torch, device, cx, cy, ti, tl, scen, rounds, dispatch,
     tcfg = transport.TransportConfig(
         mode="approx", modulation="qpsk",
         channel=channel.ChannelConfig(snr_db=10.0), use_kernel=True)
-    algo = engine.FedSGD(config(), batch_per_round=32)
+    if algo is None:
+        algo = engine.FedSGD(config(), batch_per_round=32)
     eng = engine.RoundEngine(algo, tcfg, cx, cy, ti, tl, n_rounds=rounds,
                              seed=0, eval_every=1, scenario=scen,
                              adaptive_dispatch=dispatch,
-                             fused_aggregate=fused, device=device)
+                             fused_aggregate=fused, downlink=downlink,
+                             device=device)
     per_round = []
     apply = algo.apply
 
@@ -904,7 +928,7 @@ def _scenario_run(torch, device, cx, cy, ti, tl, scen, rounds, dispatch,
         deltas.append({k: c[k] - prev[k] for k in c})
         prev = c
     _check(total == prev, f"launches after the last round {total} != {prev}")
-    return res, deltas, total, peak, eng.driver
+    return res, deltas, total, peak, eng
 
 
 def phase_link(torch, device, small: bool) -> list:
@@ -926,9 +950,10 @@ def phase_link(torch, device, small: bool) -> list:
     rnds, first = [], None
     for name, label, dispatch, fused, rounds in runs:
         t0 = time.perf_counter()
-        res, deltas, total, peak, drv = _scenario_run(
+        res, deltas, total, peak, eng = _scenario_run(
             torch, device, cx, cy, ti, tl, name, rounds, dispatch, fused,
             capture=rnds if first is None else None)
+        drv = eng.driver
         secs = time.perf_counter() - t0
         kernel = "k2" if fused else "k1"
         for r, (link, d, ph) in enumerate(zip(res.link, deltas,
@@ -1065,6 +1090,279 @@ def _link_step_times(torch, device, n_clients, driver) -> None:
             _log(f"  link step ({name}, {n_clients} clients) on "
                  f"{torch.device(where).type}: {ms:.3f} ms (median of "
                  f"{reps})")
+
+
+def _uncoded_kernel(cfg) -> bool:
+    return cfg.use_kernel and cfg.mode in ("approx", "naive")
+
+
+def _downlink_buckets(eng, link) -> int:
+    """K1 launches a round's broadcast should make: one per non-empty
+    uncoded ``use_kernel`` mode of an adaptive downlink (none under select,
+    whose kernel rows are cleared), else one if the broadcast's config is
+    on the kernel path."""
+    dl = eng.downlink
+    if dl is None:
+        return 0
+    if dl.adaptive:
+        if eng.dispatch == "select":
+            return 0
+        return sum(1 for m, c in zip(link["downlink_mode_counts"],
+                                     eng.driver.mode_cfgs)
+                   if m and _uncoded_kernel(c))
+    return int(_uncoded_kernel(eng.dl_cfg))
+
+
+def _uplink_buckets(eng, link) -> int:
+    """K1 (layered) or K2 (fused) launches of a round's uplink."""
+    if eng.driver is None:
+        return int(_uncoded_kernel(eng.transport_cfg))
+    if eng.dispatch == "select":
+        return 0
+    return sum(1 for m, c in zip(link["mode_counts"], eng.driver.mode_cfgs)
+               if m and _uncoded_kernel(c))
+
+
+def _log_rounds(label, res, deltas) -> None:
+    for r, (d, ph) in enumerate(zip(deltas, res.phase_s)):
+        link = res.link[r] if res.link else {}
+        modes = ""
+        if "mode_counts" in link:
+            modes = f"modes {link['mode_counts']}, "
+        if "downlink_mode_counts" in link:
+            modes += f"downlink modes {link['downlink_mode_counts']}, "
+        dl = ""
+        if "downlink_ber" in link:
+            dl = (f"downlink BER {link['downlink_ber']:.5f}, airtime "
+                  f"{link['downlink_airtime_s']:.6f} s; ")
+        _log(f"    {label} round {r}: {modes}launches {d}, {dl}" + ", ".join(
+            f"{k} {v * 1e3:.3f} ms" for k, v in ph.items()))
+
+
+def phase_downlink(torch, device, small: bool) -> dict:
+    """Phase 5e: FedAvg and the downlink broadcast at full width. Returns
+    the K1/K2 launches of its runs, which are main-path launches."""
+    from repro_torch.configs.mnist_cnn import config
+    from repro_torch.fl import engine
+    from repro_torch.link import scenario as scenario_lib
+
+    _log("== phase 5e: FedAvg and the downlink at full width")
+    n_clients = 8 if small else 100
+    cx, cy, ti, tl = _world(n_clients, small)
+    on_card = device.type == "cuda"
+    approx_dl = scenario_lib.DownlinkConfig(mode="approx", snr_offset_db=0.0)
+
+    def fedavg(scale="none"):
+        return engine.FedAvg(config(), local_steps=4, batch_per_step=32,
+                             scale_mode=scale)
+
+    def fedsgd():
+        return engine.FedSGD(config(), batch_per_round=32)
+
+    runs = [  # label, algorithm, scenario, dispatch, fused, downlink
+        ("(a) FedAvg none, layered (K1)", fedavg, None, "bucketed", False,
+         None),
+        ("(a) FedAvg none, fused (K2)", fedavg, None, "bucketed", True,
+         None),
+        ("(a) FedAvg max_abs, layered (K1)", lambda: fedavg("max_abs"),
+         None, "bucketed", False, None),
+        ("(b) FedSGD + approx downlink, layered", fedsgd, None, "bucketed",
+         False, approx_dl),
+        ("(b) FedSGD + approx downlink, fused", fedsgd, None, "bucketed",
+         True, approx_dl),
+        ("(b) FedAvg + approx downlink, layered", fedavg, None, "bucketed",
+         False, approx_dl),
+        ("(b) FedAvg + approx downlink, fused", fedavg, None, "bucketed",
+         True, approx_dl),
+    ]
+    for preset in ("static-noisy-dl", "vehicular-noisy-dl"):
+        for dispatch, fused, shape in (("bucketed", False, "bucketed layered"),
+                                       ("bucketed", True, "bucketed fused"),
+                                       ("select", False, "select")):
+            runs.append((f"(c) {preset}, FedAvg, {shape}", fedavg, preset,
+                         dispatch, fused, None))
+    launches = {"k0": 0, "k1": 0, "k2": 0}
+    for label, make, scen, dispatch, fused, dl in runs:
+        t0 = time.perf_counter()
+        res, deltas, total, peak, eng = _scenario_run(
+            torch, device, cx, cy, ti, tl, scen, 3, dispatch, fused,
+            algo=make(), downlink=dl)
+        secs = time.perf_counter() - t0
+        _log_rounds(label, res, deltas)
+        for r, d in enumerate(deltas):
+            link = res.link[r] if res.link else {}
+            down, up = _downlink_buckets(eng, link), _uplink_buckets(eng,
+                                                                     link)
+            want = {"k0": 0, "k1": down + (0 if fused else up),
+                    "k2": up if fused else 0}
+            if not on_card:
+                want = {"k0": 0, "k1": 0, "k2": 0}
+            _check(d == want, f"{label} round {r}: launches {d}, expected "
+                              f"{want} ({down} downlink, {up} uplink)")
+        _check(all(math.isfinite(a) for a in res.accuracy),
+               f"{label}: accuracy is not finite")
+        _check(all(math.isfinite(a) and a > 0 for a in res.airtime_s),
+               f"{label}: airtime is not finite")
+        if eng.downlink is not None:
+            _check(len(res.link) == 3 and all(
+                "downlink_airtime_s" in l for l in res.link),
+                f"{label}: no downlink telemetry")
+        for k in launches:
+            launches[k] += total[k]
+        _log(f"  {label}: {n_clients} clients x 3 rounds in {secs:.2f} s, "
+             f"launches {total}, accuracy {res.accuracy}, cumulative "
+             f"airtime {res.airtime_s} s, peak memory {peak}")
+    _payload_times(torch, device, cx, cy)
+    _broadcast_vs_plain(torch, device, small)
+    _perfect_equals_none(torch, device, cx, cy, ti, tl)
+    if on_card:
+        _fedavg_card_vs_cpu(torch, device)
+    return launches
+
+
+def _payload_times(torch, device, cx, cy) -> None:
+    """Each algorithm's payload from the shared global model (``payload``)
+    and from per-client copies (``payload_from``, batched-weight convs),
+    on one round's batches: host-clock medians between synchronises, in
+    the order shared, per-client, per-client, shared."""
+    import numpy as np
+
+    from repro_torch.configs.mnist_cnn import config
+    from repro_torch.core import prng
+    from repro_torch.fl import cnn, engine
+
+    clock = Clock(torch, device)
+    reps = 10 if device.type == "cuda" else 2
+    params = cnn.init_params(prng.PRNGKey(0), config(), device)
+    m = cx.shape[0]
+    recv = {k: v.expand((m,) + tuple(v.shape)).contiguous()
+            for k, v in params.items()}
+    for name, algo in (("FedSGD", engine.FedSGD(config())),
+                       ("FedAvg, 4 local steps", engine.FedAvg(config()))):
+        xb, yb = algo.sample(np.random.default_rng(0), cx, cy, device)
+        shared = lambda: algo.payload(params, xb, yb)  # noqa: E731
+        own = lambda: algo.payload_from(recv, xb, yb)  # noqa: E731
+        s1 = clock.host_median_ms(shared, reps)
+        o1 = clock.host_median_ms(own, reps)
+        o2 = clock.host_median_ms(own, reps)
+        s2 = clock.host_median_ms(shared, reps)
+        _log(f"  {name}, {m} clients: payload (shared weights) "
+             f"{min(s1, s2):.3f} ms (runs {s1:.3f}, {s2:.3f}), payload_from "
+             f"(per-client weights) {min(o1, o2):.3f} ms (runs {o1:.3f}, "
+             f"{o2:.3f}) (medians of {reps})")
+
+
+def _broadcast_vs_plain(torch, device, small: bool) -> None:
+    """(d) Round 0's broadcast at the main-path shape (the round-0 model,
+    100 clients, the round key on the downlink lane) through
+    ``transmit_broadcast`` (K1 on the card) against the plain K1 on the
+    same tile: 0 differing words; again at N = 22,528, whole tiles, which
+    the wrapper hands to the kernel without a padding copy."""
+    from repro_torch.configs.mnist_cnn import config
+    from repro_torch.core import channel, prng, transport
+    from repro_torch.fl import cnn
+    from repro_torch.kernels import ops, ref
+
+    c = 8 if small else 100
+    key = prng.PRNGKey(0)
+    key, pk = prng.split(key)
+    _, rk = prng.split(key)
+    params = cnn.init_params(pk, config(), device)
+    flat, _ = transport._flatten_global_tree(params)
+    cfg = transport.TransportConfig(
+        mode="approx", modulation="qpsk",
+        channel=channel.ChannelConfig(snr_db=10.0), use_kernel=True)
+    keys = transport.client_keys(rk, c, transport.DOWNLINK_KEY_LANE)
+    seeds = ops._seed_from_key(keys).to(device)
+    npow, gains = ops._link_params(cfg, c, None, device)
+    g = torch.Generator().manual_seed(12)
+    whole = (torch.randn((22528,), generator=g) * 1e-2).to(device)
+    for name, x in (("round-0 model", flat), ("whole tiles", whole)):
+        n = x.shape[0]
+        xg, sg = transport.transmit_broadcast(x, rk, cfg, c, device=device)
+        tile = torch.nn.functional.pad(x.expand(c, n), (0, (-n) % 1024))
+        xp, ep, edges = ref.approx_channel_batch_ref(
+            tile, seeds, npow, gains, bits_per_symbol=2, fading="rayleigh",
+            clamp_mask=0xBFFFFFFF, word_bits=32, with_edges=True)
+        diff = _bits(torch, xg) != _bits(torch, xp[:, :n])
+        pad_errs = ops._padding_errors(xp[:, n:], 32)
+        _check(not bool(diff.any()),
+               f"broadcast ({name}) through K1 differs from the plain "
+               f"version in {int(diff.sum())} words")
+        _check(torch.equal(sg.bit_errors.to(torch.int32),
+                           (ep - pad_errs).to(torch.int32)),
+               f"broadcast ({name}) bit errors differ from the plain version")
+        err = (xg - xp[:, :n]).abs()
+        err = err[torch.isfinite(err)]
+        _log(f"  (d) broadcast, {name}: {c} x {n} floats through "
+             f"transmit_broadcast vs the plain K1: words differing "
+             f"{int(diff.sum())}, max|err| "
+             f"{float(err.max()) if err.numel() else 0.0:.3g}, mean BER "
+             f"{float(sg.ber.mean()):.5f}")
+
+
+def _perfect_equals_none(torch, device, cx, cy, ti, tl) -> None:
+    """(d) A perfect downlink equals no downlink, bit for bit (FedSGD
+    layered and FedAvg fused, 2 rounds at full width)."""
+    from repro_torch.configs.mnist_cnn import config
+    from repro_torch.core import channel, transport
+    from repro_torch.fl import engine
+    from repro_torch.link import scenario as scenario_lib
+
+    tcfg = transport.TransportConfig(
+        mode="approx", modulation="qpsk",
+        channel=channel.ChannelConfig(snr_db=10.0), use_kernel=True)
+    for label, make, fused in (
+            ("FedSGD layered", lambda: engine.FedSGD(config()), False),
+            ("FedAvg fused", lambda: engine.FedAvg(config()), True)):
+        out = []
+        for dl in (None, scenario_lib.DownlinkConfig(mode="perfect")):
+            eng = engine.RoundEngine(make(), tcfg, cx, cy, ti, tl,
+                                     n_rounds=2, seed=0, eval_every=1,
+                                     fused_aggregate=fused, downlink=dl,
+                                     device=device)
+            out.append((eng.run(), eng.params))
+        (a, pa), (b, pb) = out
+        same = all(torch.equal(_bits(torch, pa[k]), _bits(torch, pb[k]))
+                   for k in pa)
+        _check(same and a.accuracy == b.accuracy,
+               f"perfect downlink differs from no downlink ({label})")
+        _log(f"  (d) perfect downlink == no downlink, bit for bit ({label}, "
+             f"2 rounds): accuracy {b.accuracy}, airtime {a.airtime_s} -> "
+             f"{b.airtime_s} s")
+
+
+def _fedavg_card_vs_cpu(torch, device) -> None:
+    """(d) A 6-client FedAvg ``max_abs`` run on ``vehicular-noisy-dl``
+    (bucketed, kernel rows), on the card and on the CPU."""
+    from repro_torch.configs.mnist_cnn import config
+    from repro_torch.fl import engine
+    from repro_torch.link import scenario as scenario_lib
+
+    cx, cy, ti, tl = _world(6, small=True)
+    scen = dataclasses.replace(
+        scenario_lib.get_scenario("vehicular-noisy-dl"),
+        ecrt_expected_tx=2.0)
+    out = []
+    for dev in (device, torch.device("cpu")):
+        algo = engine.FedAvg(config(), local_steps=2, batch_per_step=8,
+                             scale_mode="max_abs")
+        out.append(_scenario_run(torch, dev, cx, cy, ti, tl, scen, 3,
+                                 "bucketed", False, algo=algo)[0])
+    a, b = out
+    tol = 2 / len(tl) + 1e-6
+    for f in ("mode_counts", "downlink_mode_counts", "n_active"):
+        _check([r[f] for r in a.link] == [r[f] for r in b.link],
+               f"FedAvg max_abs {f} differ between the card and the CPU")
+    _check(all(abs(p - q) <= tol for p, q in zip(a.accuracy, b.accuracy)),
+           f"FedAvg max_abs GPU {a.accuracy} vs CPU {b.accuracy} accuracy")
+    _check(all(abs(p - q) <= 1e-6 * q
+               for p, q in zip(a.airtime_s, b.airtime_s)),
+           "FedAvg max_abs GPU and CPU airtime differ")
+    _log(f"  (d) 6-client FedAvg max_abs, vehicular-noisy-dl, bucketed: "
+         f"modes {[r['mode_counts'] for r in a.link]}, downlink modes "
+         f"{[r['downlink_mode_counts'] for r in a.link]}, GPU {a.accuracy} "
+         f"vs CPU {b.accuracy}")
 
 
 def phase_times(torch, device, small: bool, launches: dict, sass: dict,
@@ -1222,6 +1520,8 @@ def main(argv=None) -> int:
             phase_reference(torch, device)
         phase_layered(torch, device, small)
         buckets = phase_link(torch, device, small)
+        for k, v in phase_downlink(torch, device, small).items():
+            launches[k] += v
         rows = phase_times(torch, device, small, launches, sass, mhz,
                            buckets)
     except PhaseError as e:

@@ -6,8 +6,8 @@ module (``repro_torch.core.transport`` is the counterpart of
 ``repro``. The two hand-written CUDA kernels of the uplink live in
 ``repro_torch.kernels``; everything else is plain PyTorch.
 
-Device policy. Every entry point (``run_fl``, ``RoundEngine``, the
-``transmit_*`` functions) runs on the GPU unless the caller passes
+Device policy. Every entry point (``run_fl``, ``run_fedavg``,
+``RoundEngine``, the ``transmit_*`` functions) runs on the GPU unless the caller passes
 ``device="cpu"``. Without a GPU, a call that did not ask for the CPU
 raises: nothing falls back to the CPU silently. Resolving a CUDA device
 also switches TF32 off for matmuls and cuDNN convolutions, so float32

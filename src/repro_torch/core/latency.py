@@ -10,10 +10,12 @@ returns E[transmissions per codeword]; ``ecrt_expected_tx_curve``,
 ``interp_expected_tx`` and ``ecrt_expected_tx_profile`` turn it into
 per-client E[tx] for heterogeneous SNR. ECRT pays the FEC-processing stall
 on its data time and the per-transmission overhead E[tx] times;
-``round_airtime_adaptive`` prices a mixed-mode round client by client.
+``round_airtime_adaptive`` prices a mixed-mode round client by client,
+and ``broadcast_airtime`` prices the downlink broadcast (one transmission
+per distinct mode).
 
-Not ported yet: ``broadcast_airtime`` (ROADMAP Queue 1, item 5),
-``arrival_times`` and ``sync_round_duration`` (item 7).
+Not ported yet: ``arrival_times`` and ``sync_round_duration`` (ROADMAP
+Queue 1, item 7).
 """
 
 from __future__ import annotations
@@ -31,8 +33,9 @@ from repro_torch.core import modulation as mod_lib
 from repro_torch.core import prng
 
 __all__ = ["DEFAULT_CALIB_CODEWORDS", "DEFAULT_CALIB_MAX_TX", "PhyTimings",
-           "round_airtime", "round_airtime_adaptive", "calibrate_ecrt", "ecrt_expected_tx_curve",
-           "interp_expected_tx", "ecrt_expected_tx_profile"]
+           "round_airtime", "round_airtime_adaptive", "broadcast_airtime",
+           "calibrate_ecrt", "ecrt_expected_tx_curve", "interp_expected_tx",
+           "ecrt_expected_tx_profile"]
 
 # ECRT E[tx] pricing sample budget shared by every pricing entry point
 # (the FL engine's resolve_ecrt_analytic among them), so one channel always
@@ -83,6 +86,39 @@ def round_airtime_adaptive(stats, timings: PhyTimings, cfgs):
     fec_stall = stall[stats.mode_idx.to(device=sym.device, dtype=torch.int64)]
     t_data = sym / torch.full_like(sym, timings.symbol_rate) * (1.0 + fec_stall)
     return t_data + stats.transmissions * timings.t_overhead
+
+
+def broadcast_airtime(per_client_air, mode_idx=None) -> float:
+    """Seconds the PS spends on one downlink broadcast.
+
+    The uplink is TDMA, so its round costs the sum of the clients'
+    airtimes; the downlink is a broadcast, transmitted once per encoding
+    and heard by every client of that mode. So the round's downlink cost
+    is, per distinct mode in the cohort, the per-mode max of the clients'
+    reception airtime (which also covers per-client E[tx]-rescaled ECRT
+    rows), summed over the modes present.
+
+    Args:
+      per_client_air: ``(num_clients,)`` reception airtime,
+        ``round_airtime`` or ``round_airtime_adaptive`` of the broadcast's
+        ``TxStats``.
+      mode_idx: the stats' per-client mode vector, or ``None`` for a
+        single-mode broadcast (one transmission in all).
+
+    Returns a host float: the same float32 numpy reductions as the
+    reference.
+    """
+    if isinstance(per_client_air, torch.Tensor):
+        per_client_air = per_client_air.cpu()
+    air = np.asarray(per_client_air, np.float32).reshape(-1)
+    if air.size == 0:
+        return 0.0
+    if mode_idx is None:
+        return float(air.max())
+    if isinstance(mode_idx, torch.Tensor):
+        mode_idx = mode_idx.cpu()
+    modes = np.asarray(mode_idx).reshape(-1)
+    return float(sum(float(air[modes == m].max()) for m in np.unique(modes)))
 
 
 def calibrate_ecrt(snr_db: float, modulation: str = "qpsk",

@@ -32,6 +32,13 @@ rest of its batch, so ``select`` runs each mode on exactly its own
 clients, unpadded, and gives the same bits. Like the reference it
 refuses ``use_kernel`` rows (:func:`clear_kernel_rows` clears them).
 
+The downlink broadcast (:func:`transmit_broadcast`, the FL round's
+noisy downlink leg) tiles one flat payload into a dense ``(M, N)`` batch
+on the payload's device and runs it through the same engine, client
+``i`` on ``fold_in(key, DOWNLINK_KEY_LANE + i)``; the mixed-mode
+broadcast (:func:`transmit_broadcast_adaptive`) runs the adaptive
+dispatch with ``client_offset=DOWNLINK_KEY_LANE``.
+
 The key schedule is the reference's: client ``i`` of a batch draws
 ``fold_in(key, client_offset + i)`` (:func:`client_keys`). On the kernel
 path each client's kernel seed is ``randint(key_i, (), 0, int32 max)``; on
@@ -81,9 +88,18 @@ __all__ = [
     "transmit_pytree_batch_adaptive",
     "transmit_batch_adaptive_aggregate",
     "transmit_pytree_batch_adaptive_aggregate",
+    "DOWNLINK_KEY_LANE",
+    "transmit_broadcast",
+    "transmit_broadcast_adaptive",
+    "transmit_pytree_broadcast",
+    "transmit_pytree_broadcast_adaptive",
 ]
 
 _MODES = ("perfect", "naive", "approx", "ecrt")
+
+# Client i of a broadcast draws fold_in(key, DOWNLINK_KEY_LANE + i): the
+# round's uplink key serves both legs, on disjoint lanes.
+DOWNLINK_KEY_LANE = keylanes.DOWNLINK_KEY_LANE
 
 
 @dataclasses.dataclass(frozen=True)
@@ -901,3 +917,108 @@ def transmit_pytree_batch_adaptive_aggregate(tree, key: torch.Tensor, cfgs,
     agg, stats = transmit_batch_adaptive_aggregate(
         flat, key, cfgs, mode_idx, weights, snr_db=snr_db, device=device)
     return _unflatten_aggregate_tree(agg, tree_spec), stats
+
+
+def _broadcast_payload(x, num_clients: int, device) -> torch.Tensor:
+    """Validate one flat ``(N,)`` payload and tile it into one dense
+    ``(num_clients, N)`` float32 batch on its device (one copy there; the
+    kernel path takes it as it is when ``N`` is a whole number of
+    tiles)."""
+    x = torch.as_tensor(x).to(device=resolve_device(device),
+                              dtype=torch.float32)
+    if x.ndim != 1:
+        raise ValueError(f"broadcast wants a flat (N,) payload; got "
+                         f"{tuple(x.shape)}")
+    keylanes.check_cohort(DOWNLINK_KEY_LANE, num_clients)
+    return x.expand(num_clients, x.shape[0]).contiguous()
+
+
+def transmit_broadcast(x, key: torch.Tensor, cfg: TransportConfig,
+                       num_clients: int, *, snr_db=None, device=None):
+    """Broadcast one payload through ``num_clients`` independent downlinks.
+
+    The downlink leg of an FL round: the PS transmits the global model
+    once and every client hears it over its own fading channel. Client
+    ``i``'s key is ``fold_in(key, DOWNLINK_KEY_LANE + i)``, so the caller
+    may reuse the round's uplink key: the uplink's draws do not change.
+    One K1 launch on the kernel path; the layered PHY or the ECRT model
+    otherwise.
+
+    Args:
+      x: ``(N,)`` global payload (cast to float32).
+      key: base PRNG key ``(2,)``, typically the round's uplink key.
+      cfg: downlink transport configuration.
+      num_clients: receiving clients, in ``[1, lane width]``.
+      snr_db: optional per-client SNR (scalar or ``(num_clients,)``).
+      device: where to run; ``None`` is the GPU.
+
+    Returns ``(x_hat (num_clients, N) float32, TxStats with
+    (num_clients,) fields)``; ``latency.broadcast_airtime`` prices the
+    single transmission from them.
+    """
+    _check_mode(cfg)
+    xb = _broadcast_payload(x, num_clients, device)
+    snr_vec = _resolve_batch_snr(cfg, num_clients, snr_db, xb.device)
+    with spans.span("keys"):
+        keys = client_keys(key, num_clients, DOWNLINK_KEY_LANE)
+    return _batch_with_keys(xb, keys, cfg, snr_vec)
+
+
+def transmit_broadcast_adaptive(x, key: torch.Tensor, cfgs, mode_idx, *,
+                                snr_db=None, dispatch: str = "auto",
+                                device=None):
+    """Mixed-mode broadcast: client ``i`` receives via
+    ``cfgs[mode_idx[i]]``. :func:`transmit_batch_adaptive` on the tiled
+    payload with ``client_offset=DOWNLINK_KEY_LANE``: the same dispatches
+    and checks (one K1 launch per non-empty uncoded bucket on
+    ``use_kernel`` tables)."""
+    num_clients = len(mode_idx)
+    xb = _broadcast_payload(x, num_clients, device)
+    return transmit_batch_adaptive(
+        xb, key, cfgs, mode_idx, snr_db=snr_db,
+        client_offset=DOWNLINK_KEY_LANE, dispatch=dispatch, device=device)
+
+
+def _flatten_global_tree(tree):
+    """A client-dim-free tree as one ``(D,)`` float32 payload (sorted-key
+    order) and the spec to rebuild per-client copies."""
+    leaves, spec = tree_flatten(tree)
+    flat = torch.cat([l.reshape(-1).to(torch.float32) for l in leaves])
+    return flat, (leaves, spec)
+
+
+def _unflatten_broadcast_tree(flat_hat: torch.Tensor, tree_spec):
+    """``(num_clients, D)`` received copies back to a tree whose leaves
+    grew a leading client dim, dtypes restored."""
+    leaves, spec = tree_spec
+    num_clients = flat_hat.shape[0]
+    out, off = [], 0
+    for leaf in leaves:
+        size = leaf.numel()
+        out.append(flat_hat[:, off:off + size]
+                   .reshape((num_clients,) + tuple(leaf.shape))
+                   .to(leaf.dtype))
+        off += size
+    return tree_unflatten(spec, out)
+
+
+def transmit_pytree_broadcast(tree, key: torch.Tensor, cfg: TransportConfig,
+                              num_clients: int, *, snr_db=None, device=None):
+    """Broadcast a whole tree (the global model) to every client: leaves
+    come back with a leading ``(num_clients,)`` dim, client ``i``'s copy
+    at index ``i``; stats are per client."""
+    flat, tree_spec = _flatten_global_tree(tree)
+    flat_hat, stats = transmit_broadcast(flat, key, cfg, num_clients,
+                                         snr_db=snr_db, device=device)
+    return _unflatten_broadcast_tree(flat_hat, tree_spec), stats
+
+
+def transmit_pytree_broadcast_adaptive(tree, key: torch.Tensor, cfgs,
+                                       mode_idx, *, snr_db=None,
+                                       dispatch: str = "auto", device=None):
+    """Pytree front-end of :func:`transmit_broadcast_adaptive`."""
+    flat, tree_spec = _flatten_global_tree(tree)
+    flat_hat, stats = transmit_broadcast_adaptive(
+        flat, key, cfgs, mode_idx, snr_db=snr_db, dispatch=dispatch,
+        device=device)
+    return _unflatten_broadcast_tree(flat_hat, tree_spec), stats

@@ -1,16 +1,23 @@
-"""FL round engine (port, part): FedSGD rounds over the wireless uplink.
+"""FL round engine (port): FedSGD and FedAvg rounds over the wireless
+uplink, with the optional noisy downlink broadcast.
 
-Counterpart of ``repro.fl.engine`` for :class:`RoundEngine` with the
-:class:`FedSGD` algorithm. Driverless runs (no ``scenario=``) are the
-paper's own experiment, in both of its round shapes:
+Counterpart of ``repro.fl.engine``. An algorithm says what the clients
+compute and how the PS applies the aggregate: :class:`FedSGD` uploads
+one-step gradients and applies them through SGD (paper eq. (4)-(6));
+:class:`FedAvg` uploads the weight delta after ``local_steps`` local SGD
+steps, optionally scaled per client by ``1 / max|delta|``
+(``scale_mode="max_abs"``), and adds the aggregated delta to the model.
+:class:`RoundEngine` says how a round runs. Driverless runs (no
+``scenario=``) are the paper's own experiment, in both of its round
+shapes:
 
-* **layered** (``fused_aggregate=False``): per-client gradients ->
+* **layered** (``fused_aggregate=False``): payloads ->
   ``transport.transmit_pytree_batch`` (one K1 launch on the kernel path,
-  the layered PHY or the ECRT model otherwise) -> mean over clients -> SGD
-  step;
-* **fused** (``fused_aggregate=True``): per-client gradients ->
+  the layered PHY or the ECRT model otherwise) -> mean over clients ->
+  apply;
+* **fused** (``fused_aggregate=True``): payloads ->
   ``transport.transmit_pytree_batch_aggregate`` with uniform normalized
-  weights (one K2 launch on the kernel path) -> SGD step.
+  weights (one K2 launch on the kernel path) -> apply.
 
 Each round mirrors the reference as written: the layered round averages
 with a mean over the client axis (a reduction whose order PyTorch does not
@@ -35,11 +42,42 @@ runs the mixed-mode table in one of three round shapes:
   clients, then :func:`dropout_weighted_mean`. ``fused_aggregate=True``
   with it raises ``ValueError``, as in the reference.
 
+Every layered uplink goes through ``algorithm.wrap_uplink`` (FedAvg's
+``max_abs`` scale and descale); ``fused_aggregate=True`` with
+``scale_mode="max_abs"`` raises ``ValueError``, since the descale runs
+between demap and aggregate.
+
+Downlink leg (``downlink=DownlinkConfig(...)``, or a scenario that brings
+one, as ``static-noisy-dl`` and ``vehicular-noisy-dl`` do): at the top of
+each round the global model rides ``transport.transmit_pytree_broadcast``
+through every client's own downlink (one K1 launch on a ``use_kernel``
+config), and each client computes its payload from its received copy
+(``algorithm.payload_from``). The broadcast reuses the round's uplink key
+(``rk`` driverless, ``k_tx`` in scenario rounds) on the downlink key lane,
+so the uplink's draws do not change. Its transport is the pre-resolution
+uplink config with the downlink's mode and modulation: driverless runs
+shift the channel SNR by ``snr_offset_db`` (elementwise) and resolve ECRT
+to its analytic model at the shifted SNR (with a per-client airtime scale
+for heterogeneous cohorts); scenario rounds transmit at ``rnd.snr_db +
+offset`` and calibrate an ECRT downlink at the fleet's mean SNR + offset.
+``adaptive=True`` (scenario runs only) picks each client's downlink mode
+from the policy table at the shifted CSI and runs the mixed-mode
+broadcast under the run's dispatch (one K1 launch per non-empty uncoded
+bucket, bucketed; kernel rows cleared, select). The broadcast costs the
+per-mode max of the clients' reception airtime
+(``latency.broadcast_airtime``). A lossless downlink (``perfect``, or
+ECRT, which delivers exact bits) hands every client the global model bit
+for bit, so the round computes the payload from the global model itself,
+once (``algorithm.payload``); this keeps a perfect downlink bit-identical
+to ``downlink=None``. ``downlink=None`` leaves every draw and result of
+the downlink-free rounds as they were.
+
 The per-client airtime is the driver's (mode-priced, straggler-scaled,
-zero for dropped clients), and ``FLResult.link`` holds the reference's
-per-round telemetry dicts. A scenario that brings its own downlink or
-compression raises ``NotImplementedError`` (ROADMAP Queue 1, items 5 and
-6): running it without them would be another experiment.
+zero for dropped clients) or ``round_airtime`` (driverless), plus the
+broadcast's airtime; ``FLResult.link`` holds the reference's per-round
+telemetry dicts in its key order. A scenario that brings compression
+raises ``NotImplementedError`` (ROADMAP Queue 1, item 6): running it
+without it would be another experiment.
 
 ECRT with ``simulate_fec=True`` is priced, not decoded, in rounds, as in
 the reference: :func:`resolve_ecrt_analytic` calibrates E[tx] once with
@@ -52,14 +90,16 @@ start, then (scenario runs) ``key -> (key, link-init key)``, then ``key ->
 (link key, uplink key)``; minibatches come from
 ``numpy.random.default_rng(seed)`` exactly as in the reference.
 
-Each round is timed in phases — gradients, uplink, apply, eval — on the
-host clock after a device synchronise (``FLResult.phase_s``), so the
-numbers are device time for the phase, not enqueue time. The uplink also
-reports two of its parts, timed as spans (``repro_torch.obs.spans``):
-``uplink_keys``, the per-client key schedule and kernel seeds, and
-``uplink_kernel``, the K1/K2 launches (or their plain versions on the
-CPU; 0 on the layered PHY and ECRT, which launch no kernel). Scenario
-rounds add ``link``, the link step on the host.
+Each round is timed in phases — downlink, gradients (FedAvg: the local
+steps), uplink, apply, eval — on the host clock after a device
+synchronise (``FLResult.phase_s``), so the numbers are device time for
+the phase, not enqueue time. The uplink and the downlink each report two
+of their parts, timed as spans (``repro_torch.obs.spans``):
+``uplink_keys`` / ``downlink_keys``, the per-client key schedule and
+kernel seeds, and ``uplink_kernel`` / ``downlink_kernel``, the K1/K2
+launches (or their plain versions on the CPU; 0 on the layered PHY and
+ECRT, which launch no kernel). Scenario rounds add ``link``, the link
+step on the host.
 
 The round key stays on the CPU, so the key schedule (a few hundred int64
 ops on ``num_clients`` elements) and the link step run on the host and
@@ -70,8 +110,8 @@ its key's device, so moving the key moves the schedule; the layered PHY
 moves the client keys to the payload's device, where it draws per symbol.
 
 Not ported yet (raise ``NotImplementedError`` naming the ROADMAP item):
-``downlink=``, ``compression=``, ``ledger=``, ``phase_timers=`` and
-``sketches=``; ``FedAvg`` and the asynchronous engine; the typed
+``compression=`` (item 6), ``ledger=``, ``phase_timers=`` and
+``sketches=`` (item 8); the asynchronous engine (item 7); the typed
 ``RoundRecord`` view of ``FLResult.link`` (item 8).
 """
 
@@ -93,12 +133,11 @@ from repro_torch.fl import cnn
 from repro_torch.obs import spans
 from repro_torch.optim.sgd import sgd as make_sgd
 
-__all__ = ["FLResult", "FedSGD", "RoundEngine", "resolve_ecrt_analytic",
-           "resolve_scenario", "select_mode_cfgs", "dropout_weighted_mean",
-           "link_telemetry"]
+__all__ = ["FLResult", "FedSGD", "FedAvg", "RoundEngine",
+           "resolve_ecrt_analytic", "resolve_scenario", "resolve_downlink",
+           "select_mode_cfgs", "dropout_weighted_mean", "link_telemetry"]
 
 _NOT_PORTED = {
-    "downlink": "ROADMAP Queue 1, item 5 'FedAvg and the downlink'",
     "compression": "ROADMAP Queue 1, item 6 'compress/'",
     "ledger": "ROADMAP Queue 1, item 8 'obs/'",
     "phase_timers": "ROADMAP Queue 1, item 8 'obs/'",
@@ -112,17 +151,22 @@ class FLResult:
 
     rounds: list
     accuracy: list
-    airtime_s: list  # cumulative airtime: TDMA uplink sum over clients
+    airtime_s: list  # cumulative airtime: TDMA uplink sum (+ downlink leg)
     wall_s: float
     final_accuracy: float
-    # One dict per round: seconds spent in "gradients", "uplink", "apply"
-    # and "eval" (0.0 on rounds without an eval), each closed by a device
-    # synchronise; "uplink_keys" and "uplink_kernel" are parts of "uplink";
-    # scenario rounds add "link", the host-side link step.
+    # One dict per round: seconds spent in "gradients" (FedAvg: the local
+    # steps), "uplink", "apply" and "eval" (0.0 on rounds without an
+    # eval), each closed by a device synchronise; "uplink_keys" and
+    # "uplink_kernel" are parts of "uplink"; scenario rounds add "link",
+    # the host-side link step; downlink rounds add "downlink" with its
+    # parts "downlink_keys" and "downlink_kernel".
     phase_s: list = dataclasses.field(default_factory=list)
-    # Scenario runs: one dict per round, {round, mean_snr_db, mean_est_db,
-    # mode_counts, n_active, n_stragglers, airtime_s} (mode_counts indexes
-    # the driver's mode table). [] otherwise.
+    # Per-round link telemetry in the reference's key order. Scenario
+    # runs: {round, mean_snr_db, mean_est_db, mode_counts, n_active,
+    # n_stragglers, airtime_s} (mode_counts indexes the driver's mode
+    # table); runs with a downlink add {downlink_airtime_s, downlink_ber,
+    # and for adaptive downlinks downlink_mode_counts}; driverless
+    # downlink runs append {round} and the downlink fields. [] otherwise.
     link: list = dataclasses.field(default_factory=list)
 
 
@@ -139,6 +183,17 @@ def resolve_scenario(scenario, transport_cfg, device=None):
     if isinstance(scenario, str):
         scenario = scenario_lib.get_scenario(scenario)
     return scenario_lib.ScenarioDriver(scenario, transport_cfg, device=device)
+
+
+def resolve_downlink(downlink, driver):
+    """``downlink=`` argument -> the run's ``DownlinkConfig`` (or
+    ``None``): an explicit argument wins, else a scenario's own
+    ``downlink``; ``None`` is the error-free downlink (no broadcast)."""
+    if downlink is not None:
+        return downlink
+    if driver is not None:
+        return driver.scenario.downlink
+    return None
 
 
 def dropout_weighted_mean(tree, active):
@@ -220,7 +275,9 @@ class FedSGD:
         self.cfg = cfg
         self.batch_per_round = batch_per_round
         self.opt = make_sgd(cfg.lr)
-        self._client_grads = vmap(grad(cnn.loss_fn), in_dims=(None, 0, 0))
+        grad_fn = grad(cnn.loss_fn)
+        self._client_grads = vmap(grad_fn, in_dims=(None, 0, 0))
+        self._own_grads = vmap(grad_fn, in_dims=(0, 0, 0))
 
     def init_params(self, key, device=None):
         """Global model at round 0."""
@@ -244,9 +301,122 @@ class FedSGD:
         """Per-client gradients of the global model: leaves ``(M, ...)``."""
         return self._client_grads(params, xb, yb)
 
+    def payload_from(self, recv_params, xb, yb):
+        """Per-client gradients, each at that client's received model copy
+        (leaves ``(M, ...)``; convs become batched-weight convs)."""
+        return self._own_grads(recv_params, xb, yb)
+
+    def wrap_uplink(self, payload, transmit):
+        """FedSGD uploads raw gradients: no transport-side scaling."""
+        return transmit(payload)
+
     def apply(self, params, opt_state, agg):
         """PS update (eq. (6)): one optimizer step on the aggregate."""
         return self.opt.update(agg, opt_state, params)
+
+
+# XLA turns the reference's ``/ 0.9`` into a multiply by the float32
+# reciprocal (0x3F8E38E4); the port multiplies by the same constant.
+_INV_0_9 = float(np.float32(1.0) / np.float32(0.9))
+
+
+class FedAvg:
+    """FedAvg over the approximate uplink (beyond-paper extension).
+
+    Payload = the weight delta after ``local_steps`` local SGD steps, each
+    on a fresh minibatch of ``batch_per_step``. ``scale_mode``:
+
+      ``none``     transmit raw deltas (the paper's prior |delta| < 2)
+      ``max_abs``  divide each client's delta by ``max|delta| / 0.9``
+                   before transmission and multiply it back at the PS; the
+                   scalar travels on the error-free control channel.
+    """
+
+    name = "fedavg"
+
+    def __init__(self, cfg, local_steps: int = 4, batch_per_step: int = 32,
+                 scale_mode: str = "none"):
+        self.cfg = cfg
+        self.local_steps = local_steps
+        self.batch_per_step = batch_per_step
+        self.scale_mode = scale_mode
+        self.grad_fn = grad(cnn.loss_fn)
+        self._shared = vmap(self._local_delta, in_dims=(None, 0, 0))
+        self._own = vmap(self._local_delta, in_dims=(0, 0, 0))
+
+    def init_params(self, key, device=None):
+        """Global model at round 0."""
+        return cnn.init_params(key, self.cfg, device)
+
+    def init_opt(self, params):
+        """FedAvg applies deltas directly: no optimizer state."""
+        return None
+
+    def sample(self, rng, client_x, client_y, device=None):
+        """One round's batches ``(M, local_steps, B, ...)`` on ``device``,
+        drawn with the reference's numpy calls."""
+        M = client_x.shape[0]
+        L, B = self.local_steps, self.batch_per_step
+        take = rng.integers(0, client_x.shape[1], (M, L, B))
+        xb = np.take_along_axis(
+            client_x, take.reshape(M, -1)[:, :, None, None], axis=1
+        ).reshape((M, L, B) + client_x.shape[2:])
+        yb = np.take_along_axis(client_y, take.reshape(M, -1),
+                                axis=1).reshape(M, L, B)
+        return (torch.from_numpy(np.ascontiguousarray(xb)).to(device),
+                torch.from_numpy(yb.astype(np.int64)).to(device))
+
+    def _local_delta(self, start, x, y):
+        """One client's weight delta after ``local_steps`` SGD steps from
+        ``start`` (its copy of the global model); ``x`` is ``(L, B, ...)``.
+        Each step is a multiply, then a subtract (no fma)."""
+        lr = self.cfg.lr
+        p = start
+        for i in range(self.local_steps):
+            g = self.grad_fn(p, x[i], y[i])
+            p = {k: p[k] - lr * g[k] for k in p}
+        return {k: p[k] - start[k] for k in p}
+
+    def payload(self, params, xb, yb):
+        """Per-client local-step deltas from the shared global model."""
+        return self._shared(params, xb, yb)
+
+    def payload_from(self, recv_params, xb, yb):
+        """Per-client deltas, each from that client's received copy (the
+        PS still adds the aggregate to the true model)."""
+        return self._own(recv_params, xb, yb)
+
+    @staticmethod
+    def _expand(s, like):
+        return s.reshape((s.shape[0],) + (1,) * (like.ndim - 1))
+
+    def _scale_of(self, deltas):
+        """``(M,)`` per-client scales ``max(max|delta|, 1e-8) / 0.9``, the
+        division taken as XLA takes it (module constant ``_INV_0_9``)."""
+        leaves, _ = transport_lib.tree_flatten(deltas)
+        M = leaves[0].shape[0]
+        flat = torch.cat([l.reshape(M, -1) for l in leaves], dim=1)
+        return torch.clamp_min(flat.abs().amax(dim=1), 1e-8) * _INV_0_9
+
+    def _div(self, deltas, scale):
+        return {k: l / self._expand(scale, l) for k, l in deltas.items()}
+
+    def _mul(self, deltas, scale):
+        return {k: l * self._expand(scale, l) for k, l in deltas.items()}
+
+    def wrap_uplink(self, deltas, transmit):
+        """``scale_mode="max_abs"``: one scalar per client on the
+        error-free control channel, the scaled cohort through the uplink,
+        the received rows scaled back. ``none``: the uplink as is."""
+        if self.scale_mode != "max_abs":
+            return transmit(deltas)
+        scale = self._scale_of(deltas)
+        out, stats = transmit(self._div(deltas, scale))
+        return self._mul(out, scale), stats
+
+    def apply(self, params, aux, agg):
+        """PS update: add the aggregated delta to the global model."""
+        return {k: p + agg[k] for k, p in params.items()}, aux
 
 
 def _sync(device: torch.device) -> None:
@@ -255,12 +425,13 @@ def _sync(device: torch.device) -> None:
 
 
 class RoundEngine:
-    """FL round driver: driverless (the paper's static single-mode uplink)
-    or scenario-driven (per-client link adaptation).
+    """FL round driver for :class:`FedSGD` or :class:`FedAvg`: driverless
+    (the paper's static single-mode uplink) or scenario-driven (per-client
+    link adaptation), with or without the downlink broadcast.
 
     Args mirror the reference's ``RoundEngine``; ``device`` picks where the
-    model, gradients and uplink run (``None`` is the GPU). The arguments of
-    parts not ported yet must stay at their defaults.
+    model, payloads and both legs run (``None`` is the GPU). The arguments
+    of parts not ported yet must stay at their defaults.
     """
 
     def __init__(self, algorithm, transport_cfg, client_x, client_y,
@@ -271,17 +442,12 @@ class RoundEngine:
                  downlink=None, compression=None,
                  fused_aggregate: bool = False, ledger=None,
                  phase_timers=None, sketches=None, device=None):
-        given = dict(downlink=downlink, compression=compression,
-                     ledger=ledger, phase_timers=phase_timers,
-                     sketches=sketches)
+        given = dict(compression=compression, ledger=ledger,
+                     phase_timers=phase_timers, sketches=sketches)
         for name, value in given.items():
             if value is not None:
                 raise NotImplementedError(
                     f"{name}= is not ported yet: {_NOT_PORTED[name]}")
-        if not isinstance(algorithm, FedSGD):
-            raise NotImplementedError(
-                "only FedSGD is ported: FedAvg is ROADMAP Queue 1, item 5 "
-                "'FedAvg and the downlink'")
         if adaptive_dispatch not in ("bucketed", "select"):
             raise ValueError(
                 f"adaptive_dispatch must be bucketed|select, got "
@@ -295,22 +461,45 @@ class RoundEngine:
         self.driver = resolve_scenario(scenario, transport_cfg, self.device)
         if self.driver is not None:
             scen = self.driver.scenario
-            for name in ("downlink", "compression"):
-                if getattr(scen, name) is not None:
-                    raise NotImplementedError(
-                        f"scenario {scen.name!r} brings its own {name}, "
-                        f"which is not ported yet: {_NOT_PORTED[name]}")
-            if self.fused_aggregate and self.dispatch != "bucketed":
+            if scen.compression is not None:
+                raise NotImplementedError(
+                    f"scenario {scen.name!r} brings its own compression, "
+                    f"which is not ported yet: {_NOT_PORTED['compression']}")
+            self.select_cfgs = select_mode_cfgs(self.driver)
+        # Kept pre-resolution: the downlink derives its own transport from
+        # it (an ECRT downlink is priced at the shifted SNR).
+        self._raw_transport_cfg = transport_cfg
+        self.ecrt_air_scale = None
+        if self.driver is None:
+            transport_cfg, self.ecrt_air_scale = resolve_ecrt_analytic(
+                transport_cfg, self.num_clients, self.device)
+        self.transport_cfg = transport_cfg
+        self.downlink = resolve_downlink(downlink, self.driver)
+        if (self.downlink is not None and self.downlink.adaptive
+                and self.driver is None):
+            raise ValueError(
+                "DownlinkConfig(adaptive=True) needs a scenario: the "
+                "per-client downlink mode comes from the scenario's policy "
+                "table; driverless runs use a single broadcast mode")
+        self.dl_air_scale = None
+        self.dl_cfg = (None if self.downlink is None
+                       else self._downlink_transport_cfg())
+        # A lossless single-mode broadcast hands every client the global
+        # model bit for bit: the payload is computed once, from it.
+        self._dl_lossless = (self.downlink is not None
+                             and not self.downlink.adaptive
+                             and self.dl_cfg.mode in ("perfect", "ecrt"))
+        if self.fused_aggregate:
+            if getattr(algorithm, "scale_mode", "none") == "max_abs":
+                raise ValueError(
+                    "fused_aggregate=True is incompatible with "
+                    "scale_mode='max_abs': the per-client descale runs "
+                    "between demap and aggregate")
+            if self.driver is not None and self.dispatch != "bucketed":
                 raise ValueError(
                     "fused_aggregate=True needs adaptive_dispatch="
                     "'bucketed' for scenario runs: the select dispatch has "
                     "no kernel rows to fuse into")
-            self.select_cfgs = select_mode_cfgs(self.driver)
-            self.ecrt_air_scale = None
-        else:
-            transport_cfg, self.ecrt_air_scale = resolve_ecrt_analytic(
-                transport_cfg, self.num_clients, self.device)
-        self.transport_cfg = transport_cfg
         self.client_x, self.client_y = client_x, client_y
         self.test_x = torch.as_tensor(test_x).to(self.device)
         self.test_y = torch.as_tensor(np.asarray(test_y, np.int64)).to(
@@ -335,14 +524,106 @@ class RoundEngine:
                 lk, self.num_clients)
         self._key = key
 
+    # ----------------------------------------------------------- downlink
+
+    def _downlink_transport_cfg(self):
+        """The broadcast ``TransportConfig``: the raw uplink config with the
+        downlink's mode and modulation. Driverless: the channel SNR shifted
+        by the offset (elementwise for a per-client vector), then ECRT
+        resolved to its analytic model at the shifted SNR (setting
+        ``dl_air_scale`` for heterogeneous cohorts). Scenario rounds set
+        the SNR per round, so the channel stays and an ECRT downlink is
+        calibrated at the fleet's mean SNR + offset."""
+        dl, raw = self.downlink, self._raw_transport_cfg
+        cfg = dataclasses.replace(raw, mode=dl.mode,
+                                  modulation=dl.modulation or raw.modulation)
+        transport_lib._check_mode(cfg)
+        if self.driver is not None:
+            if cfg.mode == "ecrt" and cfg.simulate_fec:
+                anchor = float(self.driver.scenario.dynamics.mean_snr_db
+                               + dl.snr_offset_db)
+                e_tx = latency_lib.calibrate_ecrt(
+                    anchor, cfg.modulation,
+                    n_codewords=latency_lib.DEFAULT_CALIB_CODEWORDS,
+                    max_tx=latency_lib.DEFAULT_CALIB_MAX_TX,
+                    device=self.device)
+                cfg = dataclasses.replace(cfg, simulate_fec=False,
+                                          ecrt_expected_tx=float(e_tx))
+            return cfg
+        ch = cfg.channel
+        snr = np.asarray(ch.snr_db, np.float32) + np.float32(dl.snr_offset_db)
+        snr_val = (float(snr) if snr.ndim == 0
+                   else tuple(float(v) for v in snr.reshape(-1)))
+        cfg = dataclasses.replace(
+            cfg, channel=dataclasses.replace(ch, snr_db=snr_val))
+        cfg, self.dl_air_scale = resolve_ecrt_analytic(
+            cfg, self.num_clients, self.device)
+        return cfg
+
+    def _downlink_modes(self, est_db):
+        """Adaptive downlink: each client's mode from the scenario's policy
+        table at its shifted CSI (on the host, as the link step)."""
+        from repro_torch.link import policy as policy_lib
+
+        return policy_lib.downlink_mode(
+            est_db, self.driver.scenario.policy, self.downlink.snr_offset_db)
+
+    def _broadcast(self, params, key, rnd):
+        """One round's broadcast leg: ``(received copies, stats)``.
+        Scenario rounds transmit at ``rnd.snr_db + offset``; an adaptive
+        downlink runs the mode table under the run's dispatch (kernel rows
+        cleared for select)."""
+        dl, dev = self.downlink, self.device
+        if self.driver is None:
+            return transport_lib.transmit_pytree_broadcast(
+                params, key, self.dl_cfg, self.num_clients, device=dev)
+        dl_snr = rnd.snr_db + dl.snr_offset_db
+        if dl.adaptive:
+            cfgs = (self.driver.mode_cfgs if self.dispatch == "bucketed"
+                    else self.select_cfgs)
+            return transport_lib.transmit_pytree_broadcast_adaptive(
+                params, key, cfgs, self._downlink_modes(rnd.est_db),
+                snr_db=dl_snr, dispatch=self.dispatch, device=dev)
+        return transport_lib.transmit_pytree_broadcast(
+            params, key, self.dl_cfg, self.num_clients, snr_db=dl_snr,
+            device=dev)
+
+    def _downlink_record(self, dstats):
+        """The round's downlink telemetry fields (reference key order) and
+        the broadcast's airtime in seconds (each distinct mode transmitted
+        once; see ``latency.broadcast_airtime``)."""
+        if self.downlink.adaptive:
+            air = latency_lib.round_airtime_adaptive(
+                dstats, self.timings, self.driver.mode_cfgs)
+            total = latency_lib.broadcast_airtime(air, dstats.mode_idx)
+        else:
+            air = latency_lib.round_airtime(dstats, self.timings,
+                                            self.downlink.mode)
+            if self.dl_air_scale is not None:
+                # Heterogeneous analytic-ECRT downlink: per-client E[tx]
+                # rescale, as on the uplink.
+                air = air * self.dl_air_scale
+            total = latency_lib.broadcast_airtime(air)
+        fields = {"downlink_airtime_s": total,
+                  "downlink_ber": float(np.mean(
+                      dstats.ber.cpu().numpy()))}
+        if dstats.mode_idx is not None:
+            fields["downlink_mode_counts"] = np.bincount(
+                dstats.mode_idx.cpu().numpy(),
+                minlength=len(self.driver.mode_cfgs)).tolist()
+        return fields, total
+
+    # ------------------------------------------------------------- uplink
+
     def _uplink(self, payload, key):
         """One round's uplink + aggregation: ``(aggregate tree, stats)``."""
-        tcfg = self.transport_cfg
+        tcfg, dev = self.transport_cfg, self.device
         if self.fused_aggregate:
             return transport_lib.transmit_pytree_batch_aggregate(
-                payload, key, tcfg, self.uniform_w, device=self.device)
-        hat, stats = transport_lib.transmit_pytree_batch(
-            payload, key, tcfg, device=self.device)
+                payload, key, tcfg, self.uniform_w, device=dev)
+        hat, stats = self.algo.wrap_uplink(
+            payload, lambda t: transport_lib.transmit_pytree_batch(
+                t, key, tcfg, device=dev))
         return {k: g.mean(dim=0) for k, g in hat.items()}, stats
 
     def _uplink_scenario(self, payload, key, rnd):
@@ -350,20 +631,20 @@ class RoundEngine:
         engine's dispatch: ``(aggregate tree, stats)``."""
         dev, drv = self.device, self.driver
         active = rnd.active.to(dev)
-        if self.dispatch == "select":
-            hat, stats = transport_lib.transmit_pytree_batch_adaptive(
-                payload, key, self.select_cfgs, rnd.mode, snr_db=rnd.snr_db,
-                dispatch="select", device=dev)
-            return dropout_weighted_mean(hat, active), stats
         if self.fused_aggregate:
             return transport_lib.transmit_pytree_batch_adaptive_aggregate(
                 payload, key, drv.mode_cfgs, rnd.mode,
                 aggregation_lib.normalize_weights(active), snr_db=rnd.snr_db,
                 device=dev)
-        hat, stats = transport_lib.transmit_pytree_batch_adaptive(
-            payload, key, drv.mode_cfgs, rnd.mode, snr_db=rnd.snr_db,
-            dispatch="bucketed", device=dev)
+        cfgs = (self.select_cfgs if self.dispatch == "select"
+                else drv.mode_cfgs)
+        hat, stats = self.algo.wrap_uplink(
+            payload, lambda t: transport_lib.transmit_pytree_batch_adaptive(
+                t, key, cfgs, rnd.mode, snr_db=rnd.snr_db,
+                dispatch=self.dispatch, device=dev))
         return dropout_weighted_mean(hat, active), stats
+
+    # ---------------------------------------------------------------- run
 
     def run(self) -> FLResult:
         """Drive ``n_rounds`` rounds and return the :class:`FLResult`."""
@@ -377,23 +658,36 @@ class RoundEngine:
         for r in range(self.n_rounds):
             key, rk = prng.split(key)
             xb, yb = algo.sample(rng, self.client_x, self.client_y, dev)
-            phases = {}
+            phases, rnd, up_key = {}, None, rk
             if driver is not None:
                 t_link = time.perf_counter()
-                k_link, k_tx = prng.split(rk)
+                k_link, up_key = prng.split(rk)
                 self.lstate, rnd = driver.round(
                     self.lstate, self.prev_mode, self.prev_est, k_link)
                 self.prev_mode, self.prev_est = rnd.mode, rnd.est_db
                 phases["link"] = time.perf_counter() - t_link
+            dstats = None
             t0 = time.perf_counter()
-            payload = algo.payload(params, xb, yb)
+            if self.downlink is not None:
+                with spans.collect(dev) as dparts:
+                    recv, dstats = self._broadcast(params, up_key, rnd)
+                _sync(dev)
+                t_dl = time.perf_counter()
+                phases.update(downlink=t_dl - t0,
+                              downlink_keys=dparts.get("keys", 0.0),
+                              downlink_kernel=dparts.get("kernel", 0.0))
+                t0 = t_dl
+            if self.downlink is None or self._dl_lossless:
+                payload = algo.payload(params, xb, yb)
+            else:
+                payload = algo.payload_from(recv, xb, yb)
             _sync(dev)
             t1 = time.perf_counter()
             with spans.collect(dev) as parts:
                 if driver is None:
                     agg, stats = self._uplink(payload, rk)
                 else:
-                    agg, stats = self._uplink_scenario(payload, k_tx, rnd)
+                    agg, stats = self._uplink_scenario(payload, up_key, rnd)
             _sync(dev)
             t2 = time.perf_counter()
             params, aux = algo.apply(params, aux, agg)
@@ -406,8 +700,8 @@ class RoundEngine:
             # TDMA uplink: total airtime is the sum over clients.
             if driver is not None:
                 per_client_air = driver.airtime(stats, rnd, self.timings)
-                res.link.append(link_telemetry(r, rnd, per_client_air,
-                                               len(driver.mode_cfgs)))
+                rec = link_telemetry(r, rnd, per_client_air,
+                                     len(driver.mode_cfgs))
             else:
                 per_client_air = latency_lib.round_airtime(
                     stats, self.timings, self.transport_cfg.mode)
@@ -415,7 +709,14 @@ class RoundEngine:
                     # Heterogeneous analytic ECRT: rescale each client's
                     # airtime from the cohort-mean E[tx] to its own value.
                     per_client_air = per_client_air * self.ecrt_air_scale
+                rec = {"round": r}
             cum_air += float(torch.sum(per_client_air))
+            if dstats is not None:
+                fields, dl_air = self._downlink_record(dstats)
+                rec.update(fields)
+                cum_air += dl_air
+            if len(rec) > 1:
+                res.link.append(rec)
             if r % self.eval_every == 0 or r == self.n_rounds - 1:
                 t4 = time.perf_counter()
                 acc = float(cnn.accuracy(params, self.test_x, self.test_y))

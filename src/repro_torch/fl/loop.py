@@ -15,7 +15,11 @@ The paper's Fig. 3 compares three arms at one SNR: ``approx`` and
 the engine resolves to the calibrated analytic model). With
 ``scenario=`` each round first moves every client's SNR, estimates it
 and picks each client's mode (ECRT / approx QPSK / 16-QAM / 256-QAM) with
-dropouts and stragglers; the uplink then runs per mode bucket.
+dropouts and stragglers; the uplink then runs per mode bucket. With
+``downlink=`` (or a scenario that brings one) each round first broadcasts
+the global model through every client's own downlink (one K1 launch on a
+``use_kernel`` config) and each client computes its gradient at its
+received copy.
 
 Counterpart of ``repro.fl.loop.run_fl``: a thin façade over
 :class:`~repro_torch.fl.engine.RoundEngine` with :class:`FedSGD`.
@@ -69,16 +73,19 @@ def run_fl(
       scenario: ``None`` for the paper's static single-mode uplink, else a
         scenario name, ``Scenario`` or ``ScenarioDriver``: per-round link
         adaptation, with telemetry in ``FLResult.link``. A scenario that
-        brings a downlink or compression raises ``NotImplementedError``.
+        brings compression raises ``NotImplementedError``.
       adaptive_dispatch: ``"bucketed"`` (one batch per mode bucket, one
         K1/K2 launch per uncoded bucket on ``use_kernel`` tables) or
         ``"select"`` (kernel rows cleared; layered PHY).
+      downlink: ``None`` (error-free downlink) or a ``DownlinkConfig``:
+        the broadcast leg at the top of each round; ``adaptive=True``
+        needs a scenario. Overrides a scenario's own downlink.
       fused_aggregate: fold the PS aggregation into the uplink (K2);
         scenario runs need the bucketed dispatch for it.
       device: where to run; ``None`` is the GPU.
-      downlink / compression / ledger / phase_timers / sketches: not
-        ported yet; anything but ``None`` raises ``NotImplementedError``
-        naming the ROADMAP item (5, 6, 8).
+      compression / ledger / phase_timers / sketches: not ported yet;
+        anything but ``None`` raises ``NotImplementedError`` naming the
+        ROADMAP item (6, 8).
 
     Returns:
       :class:`~repro_torch.fl.engine.FLResult`.

@@ -36,6 +36,15 @@ def _wire(word_bits: int):
     return torch.bfloat16 if word_bits == 16 else torch.float32
 
 
+def _tiled(x: torch.Tensor, word_bits: int, block_words: int):
+    """``x`` on the wire dtype, zero-padded along its last dim to a whole
+    number of tiles, contiguous: a dense input already on the wire dtype
+    and a whole number of tiles long is passed as it is (no copy)."""
+    pad = (-x.shape[-1]) % block_words
+    xw = x.to(_wire(word_bits))
+    return (F.pad(xw, (0, pad)) if pad else xw).contiguous()
+
+
 def _padding_errors(pad_hat: torch.Tensor, word_bits: int) -> torch.Tensor:
     """Bit errors a kernel counted on zero pad words (= received popcount),
     per row of a ``(C, pad)`` block."""
@@ -52,8 +61,7 @@ def approx_channel(x, seed, noise_power, large_scale_gain, *,
     pad words are exactly 0, so every received set bit there counts).
     Returns ``(x_hat (N,) wire dtype, bit_errors () int32)``."""
     n = x.shape[0]
-    pad = (-n) % block_words
-    xp = F.pad(x.to(_wire(word_bits)), (0, pad))
+    xp = _tiled(x, word_bits, block_words)
     with spans.span("kernel"):
         x_hat, errs = ac.approx_channel_kernel(
             xp, seed, noise_power, large_scale_gain,
@@ -118,8 +126,7 @@ def approx_channel_batch(x, seeds, noise_powers, large_scale_gains, *,
     subtracts each row's padding errors. ``num_active`` masks the tail
     rows (zeros, no PHY work). Returns ``(x_hat (C, N), bit_errors (C,))``."""
     c, n = x.shape
-    pad = (-n) % block_words
-    xp = F.pad(x.to(_wire(word_bits)), (0, pad)).contiguous()
+    xp = _tiled(x, word_bits, block_words)
     with spans.span("kernel"):
         x_hat, errs = ac.approx_channel_batch_kernel(
             xp, seeds, noise_powers, large_scale_gains,
@@ -191,8 +198,7 @@ def approx_channel_batch_aggregate(x, seeds, noise_powers, large_scale_gains,
     bit_errors (C,) int32)``.
     """
     c, n = x.shape
-    pad = (-n) % block_words
-    xp = F.pad(x.to(_wire(word_bits)), (0, pad)).contiguous()
+    xp = _tiled(x, word_bits, block_words)
     with spans.span("kernel"):
         agg, errs = ac.approx_channel_batch_aggregate_kernel(
             xp, seeds, noise_powers, large_scale_gains,

@@ -48,7 +48,7 @@ class DownlinkConfig:
     ``mode`` (``"perfect"`` or a transport mode), ``modulation`` (``None``
     inherits the uplink's), ``snr_offset_db`` (downlink SNR = uplink SNR +
     offset) and ``adaptive`` (per-client mode from the scenario's policy
-    at the shifted CSI). Runs that use one are ROADMAP Queue 1, item 5."""
+    at the shifted CSI; scenario runs only)."""
 
     mode: str = "approx"
     modulation: str | None = None

@@ -17,6 +17,13 @@ its tail masked and per-client SNR: on the card it equals the CPU plain
 path under the same edge rule (the noise powers are computed on each
 device), and the launch counters move once per bucket.
 
+The downlink broadcast tiles the global model into one dense ``(M, N)``
+batch and runs it through K1 on the downlink key lane: at the main-path
+shape (100 clients, the paper CNN's 21,840 floats, and 22,528, a whole
+number of tiles) it equals the plain K1 on the same tile bit for bit,
+and a FedAvg round behind a downlink launches K1 twice (layered) or K1
+and K2 once each (fused) and tracks the CPU plain path.
+
 The layered PHY and the ECRT chain, which launch no kernel, are held
 against themselves on the CPU: the layered batch under the same edge rule
 with the tolerance of ``layered_edge`` (its normals, ``torch.erfinv``, are
@@ -545,3 +552,68 @@ def test_scenario_run_fl_launches_once_per_bucket(cuda_device, fused):
         r["mode_counts"] for r in b.link]
     assert all(abs(p - q) <= 2 / 16 + 1e-6
                for p, q in zip(res.accuracy, b.accuracy))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [21840, 22528])
+def test_broadcast_k1_matches_plain(cuda_device, n):
+    from repro_torch.core import prng as P
+
+    c = 100
+    x = (torch.randn((n,), generator=torch.Generator().manual_seed(n))
+         * 1e-2).to(cuda_device)
+    cfg = TT.TransportConfig(mode="approx", use_kernel=True,
+                             channel=TCH.ChannelConfig(snr_db=10.0))
+    key = P.PRNGKey(3)
+    TAC.reset_launch_counts()
+    xg, sg = TT.transmit_broadcast(x, key, cfg, c)
+    assert TAC.launch_counts() == {"k0": 0, "k1": 1, "k2": 0}
+    keys = TT.client_keys(key, c, TT.DOWNLINK_KEY_LANE)
+    seeds = TO._seed_from_key(keys).to(cuda_device)
+    npow, gains = TO._link_params(cfg, c, None, cuda_device)
+    tile = torch.nn.functional.pad(x.expand(c, n), (0, (-n) % 1024))
+    xp, ep, edges = TR.approx_channel_batch_ref(
+        tile, seeds, npow, gains, with_edges=True)
+    diff = _bits(xg) != _bits(xp[:, :n])
+    assert bool((edges[:, :n][diff] < EDGE).all())
+    if not bool(diff.any()):
+        pad = TO._padding_errors(xp[:, n:], 32)
+        assert torch.equal(sg.bit_errors.to(torch.int32),
+                           (ep - pad).to(torch.int32))
+    # the card against the CPU plain path, under the same edge rule
+    xc, sc = TT.transmit_broadcast(x.cpu(), key, cfg, c, device="cpu")
+    assert torch.equal(sg.n_bits.cpu(), sc.n_bits)
+    diff_cpu = _bits(xg.cpu()) != _bits(xc)
+    assert bool((edges.cpu()[:, :n][diff_cpu] < EDGE).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True])
+def test_fedavg_downlink_round_card_vs_cpu(cuda_device, fused):
+    from repro_torch.configs.mnist_cnn import config
+    from repro_torch.fl.fedavg import run_fedavg
+    from repro_torch.link import scenario as TS
+
+    rng = np.random.default_rng(1)
+    cx = rng.uniform(0, 1, (4, 16, 28, 28)).astype(np.float32)
+    cy = rng.integers(0, 10, (4, 16)).astype(np.int32)
+    cfg = TT.TransportConfig(mode="approx", use_kernel=True,
+                             channel=TCH.ChannelConfig(snr_db=10.0))
+    kw = dict(n_rounds=2, local_steps=2, batch_per_step=8, eval_every=1,
+              fused_aggregate=fused,
+              downlink=TS.DownlinkConfig(mode="approx", snr_offset_db=3.0))
+    TAC.reset_launch_counts()
+    a = run_fedavg(config(), cfg, cx, cy, cx[0], cy[0], **kw)
+    want = ({"k0": 0, "k1": 2, "k2": 2} if fused
+            else {"k0": 0, "k1": 4, "k2": 0})
+    assert TAC.launch_counts() == want
+    b = run_fedavg(config(), cfg, cx, cy, cx[0], cy[0], device="cpu", **kw)
+    assert [list(r) for r in a.link] == [list(r) for r in b.link]
+    # round 0 broadcasts the same model through K1 and its plain version
+    assert a.link[0]["downlink_ber"] == pytest.approx(
+        b.link[0]["downlink_ber"], abs=1e-4)
+    assert all(abs(p - q) <= 2 / 16 + 1e-6
+               for p, q in zip(a.accuracy, b.accuracy))
+    assert a.airtime_s == pytest.approx(b.airtime_s, rel=1e-6)
+    assert set(a.phase_s[0]) >= {"downlink", "downlink_keys",
+                                 "downlink_kernel"}

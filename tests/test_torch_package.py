@@ -6,9 +6,9 @@
 * Entry points run on the GPU unless asked for the CPU: without a GPU
   they raise, with ``device="cpu"`` they run.
 * Engine arguments not ported yet raise ``NotImplementedError`` naming
-  the ROADMAP item (so does a scenario that brings a downlink or
-  compression); an unknown transport mode, dispatch, or ``fused_aggregate``
-  with the select dispatch raises ``ValueError``.
+  the ROADMAP item, 6 to 8 (so does a scenario that brings compression);
+  an unknown transport mode, dispatch, or ``fused_aggregate`` with the
+  select dispatch raises ``ValueError``. The downlink and FedAvg run.
 """
 
 import ast
@@ -25,8 +25,10 @@ from repro_torch.core import channel as TCH  # noqa: E402
 from repro_torch.core import prng as P  # noqa: E402
 from repro_torch.core import transport as TT  # noqa: E402
 from repro_torch.fl import engine as TE  # noqa: E402
+from repro_torch.fl.fedavg import run_fedavg  # noqa: E402
 from repro_torch.fl.loop import run_fl  # noqa: E402
 from repro_torch.link import policy as TP  # noqa: E402
+from repro_torch.link import scenario as TS  # noqa: E402
 
 @pytest.fixture(scope="module", autouse=True)
 def one_thread():
@@ -73,7 +75,7 @@ def test_port_covers_its_modules():
     for mod in ("core/prng.py", "core/transport.py", "core/ecrt.py",
                 "core/bounds.py", "core/latency.py", "kernels/ref.py",
                 "kernels/approx_channel.py", "kernels/ops.py",
-                "fl/engine.py", "fl/loop.py", "convert.py",
+                "fl/engine.py", "fl/loop.py", "fl/fedavg.py", "convert.py",
                 "link/dynamics.py", "link/estimator.py", "link/policy.py",
                 "link/scenario.py", "compress/sparsify.py"):
         assert mod in names
@@ -120,6 +122,16 @@ def test_entry_points_need_a_gpu_unless_asked(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         run_fl(config(), _approx(), *_world(), n_rounds=1, batch_per_round=4,
                scenario="vehicular")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_fedavg(config(), _approx(), *_world(), n_rounds=1,
+                   local_steps=1, batch_per_step=4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_fl(config(), _approx(), *_world(), n_rounds=1, batch_per_round=4,
+               downlink=TS.DownlinkConfig())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TT.transmit_broadcast(x[0], P.PRNGKey(0), _approx(), 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TT.transmit_broadcast_adaptive(x[0], P.PRNGKey(0), table, modes)
     out, _ = TT.transmit_batch(x, P.PRNGKey(0), _approx(), device="cpu")
     assert out.device.type == "cpu"
     out, st = TT.transmit_batch_adaptive(x, P.PRNGKey(0), table, modes,
@@ -130,6 +142,13 @@ def test_entry_points_need_a_gpu_unless_asked(monkeypatch):
     assert np.isfinite(res.final_accuracy)
     res = run_fl(config(), _approx(), *_world(), n_rounds=1,
                  batch_per_round=4, scenario="vehicular", device="cpu")
+    assert np.isfinite(res.final_accuracy) and len(res.link) == 1
+    out, _ = TT.transmit_broadcast(x[0], P.PRNGKey(0), _approx(), 2,
+                                   device="cpu")
+    assert out.device.type == "cpu" and out.shape == (2, 1024)
+    res = run_fedavg(config(), _approx(), *_world(), n_rounds=1,
+                     local_steps=1, batch_per_step=4,
+                     downlink=TS.DownlinkConfig(), device="cpu")
     assert np.isfinite(res.final_accuracy) and len(res.link) == 1
 
 
@@ -192,24 +211,52 @@ def test_unknown_mode_raises():
             call()
 
 
-@pytest.mark.parametrize("arg", ["scenario", "downlink", "compression",
-                                 "ledger", "phase_timers", "sketches"])
+@pytest.mark.parametrize("arg", ["scenario", "compression", "ledger",
+                                 "phase_timers", "sketches"])
 def test_unported_engine_arguments_raise(arg):
-    """``scenario=`` is ported; a scenario that brings a downlink still
-    raises, naming the downlink's item."""
-    value = "static-noisy-dl" if arg == "scenario" else object()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_fl(config(), _approx(), *_world(), n_rounds=1, device="cpu",
-               **{arg: value})
+    """``scenario=`` is ported; a scenario that brings compression still
+    raises, naming the compression item."""
+    value = "iot-lowrate" if arg == "scenario" else object()
+    item = {"scenario": "item 6", "compression": "item 6"}.get(arg, "item 8")
+    for run in (run_fl, run_fedavg):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
+            run(config(), _approx(), *_world(), n_rounds=1, device="cpu",
+                **{arg: value})
 
 
-@pytest.mark.parametrize("name,item", [
-    ("static-noisy-dl", "item 5"), ("vehicular-noisy-dl", "item 5"),
-    ("iot-lowrate", "item 6")])
+@pytest.mark.parametrize("name,item", [("iot-lowrate", "item 6")])
 def test_scenarios_with_unported_legs_raise(name, item):
     with pytest.raises(NotImplementedError, match=item):
         run_fl(config(), _approx(), *_world(), n_rounds=1, device="cpu",
                scenario=name)
+
+
+@pytest.mark.parametrize("name", ["static-noisy-dl", "vehicular-noisy-dl"])
+def test_downlink_scenarios_run(name):
+    """The two presets that bring a downlink, which raised before the
+    downlink was ported, run a round and report its downlink fields."""
+    res = run_fl(config(), _approx(), *_world(), n_rounds=1,
+                 batch_per_round=4, device="cpu", scenario=name)
+    tail = ["downlink_airtime_s", "downlink_ber"] + (
+        ["downlink_mode_counts"] if name == "vehicular-noisy-dl" else [])
+    assert list(res.link[0])[7:] == tail
+    assert res.link[0]["downlink_airtime_s"] > 0
+    assert set(res.phase_s[0]) >= {"downlink", "downlink_keys",
+                                   "downlink_kernel"}
+
+
+def test_downlink_and_fedavg_argument_checks():
+    """The reference's ``ValueError``s: an adaptive downlink without a
+    scenario, ``max_abs`` with the fused round, a non-flat broadcast."""
+    with pytest.raises(ValueError, match="needs a scenario"):
+        run_fl(config(), _approx(), *_world(), n_rounds=1, device="cpu",
+               downlink=TS.DownlinkConfig(adaptive=True))
+    with pytest.raises(ValueError, match="max_abs"):
+        run_fedavg(config(), _approx(), *_world(), n_rounds=1,
+                   scale_mode="max_abs", fused_aggregate=True, device="cpu")
+    with pytest.raises(ValueError, match="flat"):
+        TT.transmit_broadcast(torch.zeros((2, 8)), P.PRNGKey(0), _approx(),
+                              2, device="cpu")
 
 
 def test_perfect_mode_runs_without_kernels():
@@ -234,6 +281,13 @@ def test_uplink_parts_lie_within_the_uplink():
     for ph in res.phase_s:
         assert ph["uplink_keys"] > 0 and ph["uplink_kernel"] > 0
         assert ph["uplink_keys"] + ph["uplink_kernel"] <= ph["uplink"]
+    res = run_fl(config(), _approx(), *_world(), n_rounds=2,
+                 batch_per_round=4, eval_every=1, device="cpu",
+                 downlink=TS.DownlinkConfig())
+    for ph in res.phase_s:
+        assert ph["downlink_keys"] > 0 and ph["downlink_kernel"] > 0
+        assert ph["downlink_keys"] + ph["downlink_kernel"] <= ph["downlink"]
+        assert ph["uplink_keys"] > 0 and ph["uplink_kernel"] > 0
 
 
 def test_spans_time_only_inside_a_collecting_scope():
