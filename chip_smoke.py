@@ -6,8 +6,9 @@
 
 Drives the port (``src/repro_torch``) through its main path — the paper's
 FedSGD rounds over the approximate uplink, then the link-adaptation,
-FedAvg and downlink rounds built on it — and holds both CUDA kernels
-against their plain PyTorch versions. Phases, each of which fails the run
+FedAvg, downlink and sparse-uplink rounds built on it — and holds both
+CUDA kernels against their plain PyTorch versions. Phases, each of which
+fails the run
 (non-zero exit) when it fails:
 
 1. Device: name, count, and ``nvidia-smi``'s name and power limit.
@@ -84,16 +85,41 @@ against their plain PyTorch versions. Phases, each of which fails the run
    same tile, and again at N = 22,528 (whole tiles): 0 differing words;
    a perfect downlink equal to no downlink bit for bit (FedSGD layered,
    FedAvg fused); a 6-client FedAvg ``max_abs`` run on
-   ``vehicular-noisy-dl`` on the card against the CPU plain path.
+   ``vehicular-noisy-dl`` on the card against the CPU plain path. The
+   payload times run twice over: with PyTorch's own relu and max-pool
+   derivatives (the CNN before its repair) and with the reference's, in
+   the order before, after, after, before.
+5f. Sparse uplinks at full width (the same world and base), 3 rounds
+   each: (a) FedSGD driverless with top-k 0.02 and a Gray header, with a
+   perfect header, and rand-k with an ECRT header; (b) FedSGD top-k
+   behind an approx downlink at the uplink's SNR; (c) FedAvg ``max_abs``,
+   top-k; (d) ``iot-lowrate`` (its own top-k, per-mode budgets) under the
+   bucketed dispatch; (e) ``vehicular`` with ``k=437`` under select. Per
+   round: K1 launches = the broadcast's + one for the value leg (or one
+   per non-empty uncoded bucket; none under select), K2 none; phases,
+   modes and ``comp_ratio`` / ``comp_bits_on_air`` /
+   ``comp_residual_norm``, with ``comp_bits_on_air`` checked against
+   value bits plus header bits per active client; each run's peak
+   memory. Then round 0's value leg through K1 against the plain K1 (0
+   differing words); round 0's Gray header on the card against the CPU
+   (differing indices only on symbols within ``_layered_edge`` of an
+   edge); error feedback on the card (``scatter(values) + residual ==
+   acc`` bit for bit, dropped clients keep their accumulation) and top-k's
+   order on NaN, +-inf, +-0 and ties against the CPU; a 6-client
+   ``iot-lowrate`` run on the card against the CPU: the same modes and
+   selected indices at every round, accuracy within 2 test images.
 6. Times at the main-path shape (C=100, N=22,528, QPSK, f32; K0 at C=1):
    kernel and plain version with CUDA events (median of single launches
    after a warm-up), each kernel's bound from bytes and operations, the
    floor its SASS implies at the card's issue rate, and the
    per-round key schedule (client keys + kernel seeds) on the host and on
    the card; then K1 and K2 at each bucket shape of phase 5d's round 0
-   (one median per k, capacity and ``num_active``) beside their bounds.
-7. The result: a JSON line of the kernels (``launches`` counts phase 5's
-   and phase 5e's runs), ``nvidia-smi``'s line, and as the last line
+   (one median per k, capacity and ``num_active``) beside their bounds;
+   then K1 at phase 5f's sparse value-leg shapes (C = 100, k = 437, and
+   round 0's ``iot-lowrate`` uncoded buckets), one padded tile a client,
+   beside the bound of the ``k`` words.
+7. The result: a JSON line of the kernels (``launches`` counts phase 5's,
+   5e's and 5f's runs), ``nvidia-smi``'s line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Needs one GPU, no network, and finishes in a few minutes. Exits non-zero,
@@ -880,7 +906,8 @@ def _round0_uplink_key(seed: int):
 
 
 def _scenario_run(torch, device, cx, cy, ti, tl, scen, rounds, dispatch,
-                  fused, capture=None, algo=None, downlink=None):
+                  fused, capture=None, algo=None, downlink=None,
+                  compression=None):
     """One run through ``RoundEngine`` (FedSGD unless ``algo`` is given;
     driverless with ``scen=None``): launch counts per round (read after
     each round's uplink), the result, the peak memory and the engine."""
@@ -898,7 +925,7 @@ def _scenario_run(torch, device, cx, cy, ti, tl, scen, rounds, dispatch,
                              seed=0, eval_every=1, scenario=scen,
                              adaptive_dispatch=dispatch,
                              fused_aggregate=fused, downlink=downlink,
-                             device=device)
+                             compression=compression, device=device)
     per_round = []
     apply = algo.apply
 
@@ -1131,6 +1158,10 @@ def _log_rounds(label, res, deltas) -> None:
             modes = f"modes {link['mode_counts']}, "
         if "downlink_mode_counts" in link:
             modes += f"downlink modes {link['downlink_mode_counts']}, "
+        if "comp_ratio" in link:
+            modes += (f"comp_ratio {link['comp_ratio']:.6f}, comp_bits_on_air "
+                      f"{link['comp_bits_on_air']:.0f}, comp_residual_norm "
+                      f"{link['comp_residual_norm']:.6g}, ")
         dl = ""
         if "downlink_ber" in link:
             dl = (f"downlink BER {link['downlink_ber']:.5f}, airtime "
@@ -1212,7 +1243,7 @@ def phase_downlink(torch, device, small: bool) -> dict:
         _log(f"  {label}: {n_clients} clients x 3 rounds in {secs:.2f} s, "
              f"launches {total}, accuracy {res.accuracy}, cumulative "
              f"airtime {res.airtime_s} s, peak memory {peak}")
-    _payload_times(torch, device, cx, cy)
+    _gradient_repair_times(torch, device, cx, cy)
     _broadcast_vs_plain(torch, device, small)
     _perfect_equals_none(torch, device, cx, cy, ti, tl)
     if on_card:
@@ -1220,7 +1251,7 @@ def phase_downlink(torch, device, small: bool) -> dict:
     return launches
 
 
-def _payload_times(torch, device, cx, cy) -> None:
+def _payload_times(torch, device, cx, cy, label="") -> None:
     """Each algorithm's payload from the shared global model (``payload``)
     and from per-client copies (``payload_from``, batched-weight convs),
     on one round's batches: host-clock medians between synchronises, in
@@ -1246,10 +1277,33 @@ def _payload_times(torch, device, cx, cy) -> None:
         o1 = clock.host_median_ms(own, reps)
         o2 = clock.host_median_ms(own, reps)
         s2 = clock.host_median_ms(shared, reps)
-        _log(f"  {name}, {m} clients: payload (shared weights) "
+        _log(f"  {label}{name}, {m} clients: payload (shared weights) "
              f"{min(s1, s2):.3f} ms (runs {s1:.3f}, {s2:.3f}), payload_from "
              f"(per-client weights) {min(o1, o2):.3f} ms (runs {o1:.3f}, "
              f"{o2:.3f}) (medians of {reps})")
+
+
+def _gradient_repair_times(torch, device, cx, cy) -> None:
+    """The gradient phase with PyTorch's own relu and max-pool derivatives
+    (the CNN before its repair) and with the reference's (``cnn.relu``,
+    ``cnn.pool2``), in the order before, after, after, before: the same
+    forward values, so only the backward differs."""
+    import torch.nn.functional as F
+
+    from repro_torch.fl import cnn
+
+    repaired = (cnn.relu, cnn.pool2)
+    plain = (torch.relu, lambda x: F.max_pool2d(x, 2))
+    try:
+        for label, (relu, pool) in (
+                ("before the repair (torch derivatives): ", plain),
+                ("after the repair (reference derivatives): ", repaired),
+                ("after the repair (reference derivatives): ", repaired),
+                ("before the repair (torch derivatives): ", plain)):
+            cnn.relu, cnn.pool2 = relu, pool
+            _payload_times(torch, device, cx, cy, label)
+    finally:
+        cnn.relu, cnn.pool2 = repaired
 
 
 def _broadcast_vs_plain(torch, device, small: bool) -> None:
@@ -1365,8 +1419,314 @@ def _fedavg_card_vs_cpu(torch, device) -> None:
          f"vs CPU {b.accuracy}")
 
 
+def _sparse_bits_on_air(cfg, k: int, comp, dim: int) -> float:
+    """Bits one client puts on the air for a ``k``-slot sparse frame on
+    ``cfg``: the value leg (32 bits a value uncoded or perfect; rate-1/2
+    coded times E[tx] on ECRT) plus the index header, ``index_bits(dim)``
+    bits a slot: Gray (two bits a symbol), perfect (full packing) or ECRT
+    (packed 32-bit words, coded, times the header's E[tx])."""
+    from repro_torch.compress import framing
+
+    b, km = framing.index_bits(dim), cfg.scheme.bits_per_symbol
+    value = 2 * 32 * k * cfg.ecrt_expected_tx if cfg.mode == "ecrt" \
+        else 32 * k
+    if comp.header == "gray":
+        header = -(-k * b // 2) * km
+    elif comp.header == "perfect":
+        header = -(-k * b // km) * km
+    else:
+        header = 2 * 32 * -(-k * b // 32) * comp.header_ecrt_expected_tx
+    return value + header
+
+
+def _check_comp_bits(label, eng, res, rnds) -> None:
+    """``comp_bits_on_air`` of every round against
+    :func:`_sparse_bits_on_air` summed over the round's active clients."""
+    m, dim = eng.num_clients, eng._comp_dim
+    for r, link in enumerate(res.link):
+        if eng.driver is None:
+            modes, active = [0] * m, [1.0] * m
+            cfgs, ks = [eng.transport_cfg], [eng._comp_k]
+        else:
+            modes = rnds[r].mode.cpu().tolist()
+            active = rnds[r].active.cpu().tolist()
+            cfgs, ks = eng.driver.mode_cfgs, eng._comp_ks
+        want = sum(a * _sparse_bits_on_air(cfgs[md], ks[md], eng.compression,
+                                           dim)
+                   for md, a in zip(modes, active))
+        got = link["comp_bits_on_air"]
+        _check(abs(got - want) <= 1e-6 * want,
+               f"{label} round {r}: comp_bits_on_air {got} != {want}")
+
+
+def phase_sparse(torch, device, small: bool) -> tuple:
+    """Phase 5f: sparse uplinks at full width. Returns the K1/K2 launches
+    of its runs (main-path launches) and the sparse value-leg shapes for
+    phase 6 as ``(label, clients, k, bits_per_symbol)``."""
+    from repro_torch.compress import framing, sparsify
+    from repro_torch.configs.mnist_cnn import config
+    from repro_torch.fl import engine
+    from repro_torch.link import scenario as scenario_lib
+
+    _log("== phase 5f: sparse uplinks at full width")
+    n_clients = 8 if small else 100
+    cx, cy, ti, tl = _world(n_clients, small)
+    on_card = device.type == "cuda"
+    topk = sparsify.CompressionConfig()
+    approx_dl = scenario_lib.DownlinkConfig(mode="approx", snr_offset_db=0.0)
+
+    def fedsgd():
+        return engine.FedSGD(config(), batch_per_round=32)
+
+    def fedavg_max_abs():
+        return engine.FedAvg(config(), local_steps=4, batch_per_step=32,
+                             scale_mode="max_abs")
+
+    runs = [  # label, algorithm, scenario, dispatch, compression, downlink
+        ("(a) FedSGD top-k 0.02, Gray header", fedsgd, None, "bucketed",
+         topk, None),
+        ("(a) FedSGD top-k 0.02, perfect header", fedsgd, None, "bucketed",
+         dataclasses.replace(topk, header="perfect"), None),
+        ("(a) FedSGD rand-k 0.02, ECRT header", fedsgd, None, "bucketed",
+         sparsify.CompressionConfig(method="randk", header="ecrt"), None),
+        ("(b) FedSGD top-k + approx downlink", fedsgd, None, "bucketed",
+         topk, approx_dl),
+        ("(c) FedAvg max_abs, top-k", fedavg_max_abs, None, "bucketed",
+         topk, None),
+        ("(d) iot-lowrate, bucketed", fedsgd, "iot-lowrate", "bucketed",
+         None, None),
+        ("(e) vehicular, k=437, select", fedsgd, "vehicular", "select",
+         sparsify.CompressionConfig(k=437), None),
+    ]
+    # Round 0's value leg and header of the first run, as the engine hands
+    # them to the sparse batch.
+    legs, inner = [], framing.sparse_batch_with_keys
+
+    def captured(values, indices, dim, keys, cfg, snr_vec, comp=None):
+        legs.append((values, indices, dim, keys, cfg, snr_vec, comp))
+        return inner(values, indices, dim, keys, cfg, snr_vec, comp)
+
+    launches = {"k0": 0, "k1": 0, "k2": 0}
+    shapes, leg0 = [], None
+    for label, make, scen, dispatch, comp, dl in runs:
+        rnds = []
+        framing.sparse_batch_with_keys = captured if leg0 is None else inner
+        t0 = time.perf_counter()
+        try:
+            res, deltas, total, peak, eng = _scenario_run(
+                torch, device, cx, cy, ti, tl, scen, 3, dispatch, False,
+                capture=rnds if scen else None, algo=make(), downlink=dl,
+                compression=comp)
+        finally:
+            framing.sparse_batch_with_keys = inner
+        secs = time.perf_counter() - t0
+        if leg0 is None:
+            leg0 = legs[0]
+        _log_rounds(label, res, deltas)
+        for r, d in enumerate(deltas):
+            link = res.link[r]
+            down, up = _downlink_buckets(eng, link), _uplink_buckets(eng,
+                                                                     link)
+            want = {"k0": 0, "k1": down + up, "k2": 0}
+            if not on_card:
+                want = {"k0": 0, "k1": 0, "k2": 0}
+            _check(d == want, f"{label} round {r}: launches {d}, expected "
+                              f"{want} ({down} downlink, {up} uplink)")
+        _check_comp_bits(label, eng, res, rnds)
+        _check(all(math.isfinite(a) for a in res.accuracy),
+               f"{label}: accuracy is not finite")
+        _check(all(math.isfinite(a) and a > 0 for a in res.airtime_s),
+               f"{label}: airtime is not finite")
+        for k in launches:
+            launches[k] += total[k]
+        if scen == "iot-lowrate":
+            ks = eng._comp_ks
+            modes = rnds[0].mode.cpu().numpy()
+            for m, cfg in enumerate(eng.driver.mode_cfgs):
+                count = int((modes == m).sum())
+                if count and _uncoded_kernel(cfg):
+                    shapes.append((f"iot-lowrate round 0 {cfg.modulation}",
+                                   count, ks[m], cfg.scheme.bits_per_symbol))
+        _log(f"  {label}: {n_clients} clients x 3 rounds in {secs:.2f} s, "
+             f"launches {total}, accuracy {res.accuracy}, cumulative "
+             f"airtime {res.airtime_s} s, peak memory {peak}")
+    shapes.insert(0, ("main path, driverless", n_clients,
+                      int(leg0[0].shape[1]), 2))
+    _sparse_leg_vs_plain(torch, device, leg0)
+    _gray_header_card_vs_cpu(torch, device, leg0)
+    _ef_and_order_card_vs_cpu(torch, device, small)
+    if on_card:
+        _sparse_card_vs_cpu(torch, device)
+    return launches, shapes
+
+
+def _sparse_leg_vs_plain(torch, device, leg) -> None:
+    """Round 0's value leg, ``(M, k)`` words on the clients' keys, through
+    ``transport._batch_with_keys`` (one K1 launch on the card) against the
+    plain K1 on the same zero-padded tile: 0 differing words, the same bit
+    errors (the padding's subtracted)."""
+    from repro_torch.core import transport
+    from repro_torch.kernels import ops, ref
+
+    values, _, _, keys, cfg, snr_vec, _ = leg
+    c, k = values.shape
+    xg, sg = transport._batch_with_keys(values, keys, cfg, snr_vec)
+    tile = torch.nn.functional.pad(values, (0, (-k) % 1024))
+    seeds = ops._seed_from_key(keys).to(device)
+    npow, gains = ops._link_params(cfg, c, snr_vec, device)
+    wb, mask, kbits = ops._transport_kernel_params(cfg)
+    xp, ep = ref.approx_channel_batch_ref(
+        tile, seeds, npow, gains, bits_per_symbol=kbits,
+        fading=cfg.channel.fading, fade_block=cfg.channel.block_len,
+        clamp_mask=mask, word_bits=wb)
+    diff = _bits(torch, xg) != _bits(torch, xp[:, :k])
+    _check(not bool(diff.any()),
+           f"sparse value leg through K1 differs from the plain version in "
+           f"{int(diff.sum())} words")
+    _check(torch.equal(sg.bit_errors.to(torch.int32),
+                       (ep - ops._padding_errors(xp[:, k:], wb)).to(
+                           torch.int32)),
+           "sparse value leg bit errors differ from the plain version")
+    _log(f"  value leg, round 0: {c} x {k} words (one {tile.shape[1]}-word "
+         f"tile each) through K1 vs the plain K1: words differing "
+         f"{int(diff.sum())}, mean BER {float(sg.ber.mean()):.5f}")
+
+
+def _gray_header_card_vs_cpu(torch, device, leg) -> None:
+    """Round 0's Gray header on the device against the CPU: any received
+    index that differs must carry a bit of a symbol within
+    ``_layered_edge`` of a decision edge (on the CPU's channel draws)."""
+    from repro_torch.compress import framing
+    from repro_torch.core import modulation, prng, transport
+
+    _, indices, dim, keys, cfg, _, comp = leg
+    c, k = indices.shape
+    hk = prng.fold_in(keys, framing.HEADER_KEY_LANE)
+    got, st = framing._header_batch(indices, dim, hk, cfg, comp, None)
+    cpu_idx = indices.cpu()
+    want, sw = framing._header_batch(cpu_idx, dim, hk, cfg, comp, None)
+    bits = framing._index_bit_vector(cpu_idx, dim)
+    n_hdr, b = bits.shape[1], framing.index_bits(dim)
+    bp = torch.nn.functional.pad(bits, (0, n_hdr % 2)).reshape(c, -1, 2)
+    km = cfg.scheme.bits_per_symbol
+    sym = (bp[..., 0] << (km - 1)) | (bp[..., 1] << (km - 2))
+    y, _ = transport._through_channel(sym, hk, cfg, None)
+    near = modulation.decision_margin(y, cfg.scheme) < _layered_edge(
+        cfg.scheme.levels)
+    # symbol s carries header bits 2s and 2s + 1, of slots (2s) // b, ...
+    slot_near = torch.zeros((c, k), dtype=torch.bool)
+    for bit in (0, 1):
+        pos = (2 * torch.arange(sym.shape[1]) + bit).clamp(max=n_hdr - 1)
+        slot_near |= torch.zeros((c, k), dtype=torch.int32).index_add_(
+            1, pos // b, near.to(torch.int32)).bool()
+    differ = got.cpu() != want
+    _check(not bool((differ & ~slot_near).any()),
+           "Gray header: a received index differs between the card and the "
+           "CPU away from a decision edge")
+    _log(f"  Gray header, round 0: {c} x {k} indices ({sym.shape[1]} "
+         f"symbols each) on the {device.type} vs the CPU: indices differing "
+         f"{int(differ.sum())} (edge-bound: {int(slot_near.sum())} slots "
+         f"near an edge), header bit errors {float(st.bit_errors.sum()):.0f}"
+         f" vs {float(sw.bit_errors.sum()):.0f}")
+
+
+def _ef_and_order_card_vs_cpu(torch, device, small: bool) -> None:
+    """Error feedback on the device: ``scatter(values) + residual == acc``
+    bit for bit for active clients, the whole accumulation kept by dropped
+    ones; and top-k's order on NaN, +-inf, +-0 and ties, the device
+    against the CPU."""
+    from repro_torch.compress import sparsify
+
+    m, d, k = (8, 1000, 20) if small else (100, 21840, 437)
+    g = torch.Generator().manual_seed(16)
+    res = torch.randn((m, d), generator=g) * 1e-2
+    grads = torch.round(torch.randn((m, d), generator=g) * 64) / 2**12
+    active = (torch.rand((m,), generator=g) > 0.1).float()
+    active[1] = 0.0
+    cfg = sparsify.CompressionConfig(k=k)
+    out = {}
+    for where in ("cpu", device):
+        r, gr, a = res.to(where), grads.to(where), active.to(where)
+        vals, idx, new = sparsify.ef_select_batch(r, gr, k, cfg, active=a)
+        acc = r + gr
+        sent = sparsify.scatter_dense_batch(vals, idx, d)
+        on = a.bool()
+        _check(torch.equal(_bits(torch, (sent + new)[on]),
+                           _bits(torch, acc[on]))
+               and torch.equal(_bits(torch, new[~on]), _bits(torch, acc[~on])),
+               f"error-feedback identity fails on the {torch.device(where)}")
+        out[torch.device(where).type] = (idx.cpu(), _bits(torch, new).cpu())
+    if device.type == "cuda":
+        _check(torch.equal(out["cpu"][0], out["cuda"][0])
+               and torch.equal(out["cpu"][1], out["cuda"][1]),
+               "error-feedback selection or residual differs between the "
+               "card and the CPU")
+    special = grads.clone()
+    special[:, :12] = torch.tensor(
+        [float("nan"), float("nan"), float("inf"), float("-inf"), 0.0, -0.0,
+         0.0, -0.0, float("inf"), float("nan"), float("-inf"), 5.0])
+    special[:, -3:] = float("nan")
+    i_cpu = sparsify.select_topk(special, k)[1]
+    i_dev = sparsify.select_topk(special.to(device), k)[1].cpu()
+    _check(torch.equal(i_cpu, i_dev),
+           "top-k order on NaN/inf/0/ties differs between the device and the "
+           "CPU")
+    _check(not bool(torch.isnan(special.gather(1, i_dev)).any()),
+           "top-k selected a NaN ahead of a finite coordinate")
+    _log(f"  error feedback on the {device.type}: identity bit for bit over "
+         f"{int(active.sum())} active clients, {m - int(active.sum())} "
+         f"dropped keep their accumulation; top-k order with NaN/inf/0/ties "
+         f"equal to the CPU's ({m} x {d}, k = {k})")
+
+
+def _sparse_card_vs_cpu(torch, device) -> None:
+    """A 6-client compressed run (``iot-lowrate``: top-k, Gray header,
+    per-mode budgets, bucketed) on the card and on the CPU: the same modes
+    and selected indices at every round, accuracy within 2 test images."""
+    from repro_torch.compress import sparsify
+    from repro_torch.link import scenario as scenario_lib
+
+    cx, cy, ti, tl = _world(6, small=True)
+    scen = dataclasses.replace(scenario_lib.get_scenario("iot-lowrate"),
+                               ecrt_expected_tx=2.0)
+    inner = sparsify.select_batch
+    out = []
+    for dev in (device, torch.device("cpu")):
+        picks = []
+
+        def recorded(x, k, cfg, keys=None):
+            vals, idx = inner(x, k, cfg, keys)
+            picks.append(idx.cpu())
+            return vals, idx
+
+        sparsify.select_batch = recorded
+        try:
+            res = _scenario_run(torch, dev, cx, cy, ti, tl, scen, 3,
+                                "bucketed", False)[0]
+        finally:
+            sparsify.select_batch = inner
+        out.append((res, picks))
+    (a, pa), (b, pb) = out
+    tol = 2 / len(tl) + 1e-6
+    _check([r["mode_counts"] for r in a.link]
+           == [r["mode_counts"] for r in b.link]
+           and [r["n_active"] for r in a.link]
+           == [r["n_active"] for r in b.link],
+           "compressed run: modes differ between the card and the CPU")
+    _check(len(pa) == len(pb) and all(torch.equal(p, q)
+                                      for p, q in zip(pa, pb)),
+           "compressed run: selected indices differ between the card and "
+           "the CPU")
+    _check(all(abs(p - q) <= tol for p, q in zip(a.accuracy, b.accuracy)),
+           f"compressed run: GPU {a.accuracy} vs CPU {b.accuracy} accuracy")
+    _log(f"  6-client iot-lowrate, bucketed: modes "
+         f"{[r['mode_counts'] for r in a.link]}, {len(pa)} bucket "
+         f"selections equal on the card and the CPU, GPU {a.accuracy} vs "
+         f"CPU {b.accuracy}")
+
+
 def phase_times(torch, device, small: bool, launches: dict, sass: dict,
-                mhz, buckets=()) -> list:
+                mhz, buckets=(), sparse_shapes=()) -> list:
     from repro_torch.core import aggregation, prng, transport
     from repro_torch.kernels import approx_channel as ac
     from repro_torch.kernels import ops, ref
@@ -1483,6 +1843,33 @@ def phase_times(torch, device, small: bool, launches: dict, sass: dict,
                  f"plain {min(p1, p2):.3f} ms; bound {b['bound_ms']:.4f} ms "
                  f"({b['bound_by']}: {b['bytes'] / 1e6:.2f} MB, "
                  f"{b['ops'] / 1e9:.2f} G ops)")
+    # K1 at phase 5f's sparse value-leg shapes: C clients of k words, one
+    # zero-padded 1,024-word tile each (as the wrapper pads them); the
+    # bound counts the k words the leg needs.
+    for label, cs, ks, kbits in sparse_shapes:
+        xs = torch.nn.functional.pad(
+            (torch.randn((cs, ks), generator=g) * 1e-2).to(device),
+            (0, (-ks) % 1024))
+        ss = ops._seed_from_key(transport.client_keys(prng.PRNGKey(ks), cs)
+                                ).to(device)
+        ps = torch.full((cs,), 1e-4, dtype=torch.float32, device=device)
+        gs = torch.full((cs,), 1e-3, dtype=torch.float32, device=device)
+        kws = dict(kw, bits_per_symbol=kbits)
+        kern = lambda: ac.approx_channel_batch_kernel(  # noqa: E731
+            xs, ss, ps, gs, **kws)
+        plain = lambda: ref.approx_channel_batch_ref(  # noqa: E731
+            xs, ss, ps, gs, **kws)
+        p1 = clock.median_ms(plain, preps)
+        t1 = clock.median_ms(kern, reps)
+        t2 = clock.median_ms(kern, reps)
+        p2 = clock.median_ms(plain, preps)
+        b = _bound(cs, ks, kbits, "rayleigh", 32, "k1")
+        _log(f"  k1 sparse value leg ({label}): C={cs}, k={ks} words "
+             f"(tile {xs.shape[1]}), {kbits} bits/symbol: kernel "
+             f"{min(t1, t2):.4f} ms (runs {t1:.4f}, {t2:.4f}), plain "
+             f"{min(p1, p2):.3f} ms; bound {b['bound_ms']:.5f} ms "
+             f"({b['bound_by']}: {b['bytes'] / 1e6:.3f} MB, "
+             f"{b['ops'] / 1e9:.3f} G ops)")
     return rows
 
 
@@ -1522,8 +1909,11 @@ def main(argv=None) -> int:
         buckets = phase_link(torch, device, small)
         for k, v in phase_downlink(torch, device, small).items():
             launches[k] += v
+        sparse_launches, sparse_shapes = phase_sparse(torch, device, small)
+        for k, v in sparse_launches.items():
+            launches[k] += v
         rows = phase_times(torch, device, small, launches, sass, mhz,
-                           buckets)
+                           buckets, sparse_shapes)
     except PhaseError as e:
         print(f"chip_smoke.py: FAILED: {e}", file=sys.stderr)
         return 1

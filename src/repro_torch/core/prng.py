@@ -18,7 +18,9 @@ reproduces that key schedule integer for integer:
 * ``bernoulli`` is ``uniform < p``, exact;
 * ``gamma`` is jax's Marsaglia-Tsang sampler with its key consumption,
   vectorised over elements; it inherits the few ULP of ``normal`` (and
-  of ``log`` in its acceptance test).
+  of ``log`` in its acceptance test);
+* ``permutation`` is jax's ``_shuffle`` of ``arange(n)``: rounds of a
+  stable sort under fresh 32-bit keys, exact.
 
 Keys are ``int64`` tensors of shape ``(..., 2)`` holding ``uint32``
 values. Everything derived from a key is made on the key's device, so a
@@ -49,6 +51,7 @@ __all__ = [
     "normal",
     "bernoulli",
     "gamma",
+    "permutation",
 ]
 
 M32 = 0xFFFFFFFF
@@ -266,3 +269,23 @@ def gamma(key: torch.Tensor, a: float, shape=()) -> torch.Tensor:
         u = one - uniform(subkeys, ())
         sample = sample * torch.pow(u, one / alpha_orig)
     return sample.reshape(shape)
+
+
+def permutation(key: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.permutation(key, n)``: a permutation of ``arange(n)``
+    (``int64``), one per key of a batch ``(..., 2)``.
+
+    jax's ``_shuffle``: ``ceil(3 ln(n) / ln(2**32 - 1))`` rounds (2 at
+    n = 21,840); each round takes ``key, sub = split(key)``, draws 32
+    random bits per element from ``sub`` and stable-sorts the elements by
+    them (``lax.sort_key_val``), so equal draws keep their order.
+    """
+    uint32max = np.iinfo(np.uint32).max
+    num_rounds = int(np.ceil(3 * np.log(max(1, n)) / np.log(uint32max)))
+    x = torch.arange(n, dtype=torch.int64, device=key.device).expand(
+        key.shape[:-1] + (n,))
+    for _ in range(num_rounds):
+        key, sub = split_batched(key)
+        order = torch.sort(random_bits(sub, (n,)), dim=-1, stable=True).indices
+        x = torch.gather(x, -1, order)
+    return x

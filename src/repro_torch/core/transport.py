@@ -93,6 +93,8 @@ __all__ = [
     "transmit_broadcast_adaptive",
     "transmit_pytree_broadcast",
     "transmit_pytree_broadcast_adaptive",
+    "transmit_sparse",
+    "transmit_sparse_batch",
 ]
 
 _MODES = ("perfect", "naive", "approx", "ecrt")
@@ -1022,3 +1024,31 @@ def transmit_pytree_broadcast_adaptive(tree, key: torch.Tensor, cfgs,
         flat, key, cfgs, mode_idx, snr_db=snr_db, dispatch=dispatch,
         device=device)
     return _unflatten_broadcast_tree(flat_hat, tree_spec), stats
+
+
+def transmit_sparse(values, indices, dim: int, key: torch.Tensor,
+                    cfg: TransportConfig, compression=None, *, snr_db=None,
+                    device=None):
+    """One client's sparse ``(values, indices)`` uplink: the ``(k,)`` values
+    on ``key``, the index header on the header key lane, scattered back to a
+    dense ``(dim,)`` vector; stats sum both legs. Delegates to
+    :func:`repro_torch.compress.framing.transmit_sparse`."""
+    from repro_torch.compress import framing as framing_lib
+
+    return framing_lib.transmit_sparse(values, indices, dim, key, cfg,
+                                       compression, snr_db=snr_db,
+                                       device=device)
+
+
+def transmit_sparse_batch(values, indices, dim: int, key: torch.Tensor,
+                          cfg: TransportConfig, compression=None, *,
+                          snr_db=None, client_offset: int = 0, device=None):
+    """Batched :func:`transmit_sparse` under the :func:`client_keys`
+    schedule (one K1 launch for the value leg on the kernel path).
+    Delegates to :func:`repro_torch.compress.framing.transmit_sparse_batch`.
+    """
+    from repro_torch.compress import framing as framing_lib
+
+    return framing_lib.transmit_sparse_batch(
+        values, indices, dim, key, cfg, compression, snr_db=snr_db,
+        client_offset=client_offset, device=device)

@@ -75,9 +75,28 @@ the downlink-free rounds as they were.
 The per-client airtime is the driver's (mode-priced, straggler-scaled,
 zero for dropped clients) or ``round_airtime`` (driverless), plus the
 broadcast's airtime; ``FLResult.link`` holds the reference's per-round
-telemetry dicts in its key order. A scenario that brings compression
-raises ``NotImplementedError`` (ROADMAP Queue 1, item 6): running it
-without it would be another experiment.
+telemetry dicts in its key order.
+
+Compressed uplinks (``compression=CompressionConfig(...)``, or a scenario
+that brings one, as ``iot-lowrate`` does) replace each round's dense
+uplink with the sparse wire (``repro_torch.compress``): every client keeps
+an error-feedback residual ``(M, D)`` across rounds (zeros when
+``error_feedback=False``), selects ``k`` coordinates of ``residual +
+payload`` and sends the values through the transport (one K1 launch for
+the whole ``(M, k)`` batch on a ``use_kernel`` config) plus a protected
+index header; the PS scatters the received values back to ``(M, D)`` and
+aggregates as the dense rounds do. The three round shapes: driverless
+(EF select -> sparse batch -> mean), bucketed (each mode bucket selects
+with its own budget from ``PolicyConfig.compress_ratios``, rides
+``wrap_uplink`` and its mode's config, one K1 launch per uncoded bucket,
+then :func:`dropout_weighted_mean`; dropped clients keep their
+accumulation) and select (the same on the table with its kernel rows
+cleared, one budget for every mode).
+``compress_ratios`` needs the bucketed dispatch and an explicit ``k``
+wins everywhere, as in the reference; ``fused_aggregate=True`` with
+compression raises ``ValueError``. Compressed rounds add ``comp_ratio``,
+``comp_bits_on_air`` and ``comp_residual_norm`` to ``FLResult.link``,
+between the scenario fields and the downlink fields.
 
 ECRT with ``simulate_fec=True`` is priced, not decoded, in rounds, as in
 the reference: :func:`resolve_ecrt_analytic` calibrates E[tx] once with
@@ -110,9 +129,9 @@ its key's device, so moving the key moves the schedule; the layered PHY
 moves the client keys to the payload's device, where it draws per symbol.
 
 Not ported yet (raise ``NotImplementedError`` naming the ROADMAP item):
-``compression=`` (item 6), ``ledger=``, ``phase_timers=`` and
-``sketches=`` (item 8); the asynchronous engine (item 7); the typed
-``RoundRecord`` view of ``FLResult.link`` (item 8).
+``ledger=``, ``phase_timers=`` and ``sketches=`` (item 8); the
+asynchronous engine (item 7); the typed ``RoundRecord`` view of
+``FLResult.link`` (item 8).
 """
 
 from __future__ import annotations
@@ -125,6 +144,8 @@ import torch
 from torch.func import grad, vmap
 
 from repro_torch import resolve_device
+from repro_torch.compress import framing as framing_lib
+from repro_torch.compress import sparsify as sparsify_lib
 from repro_torch.core import aggregation as aggregation_lib
 from repro_torch.core import latency as latency_lib
 from repro_torch.core import prng
@@ -135,10 +156,10 @@ from repro_torch.optim.sgd import sgd as make_sgd
 
 __all__ = ["FLResult", "FedSGD", "FedAvg", "RoundEngine",
            "resolve_ecrt_analytic", "resolve_scenario", "resolve_downlink",
-           "select_mode_cfgs", "dropout_weighted_mean", "link_telemetry"]
+           "resolve_compression", "select_mode_cfgs",
+           "dropout_weighted_mean", "link_telemetry"]
 
 _NOT_PORTED = {
-    "compression": "ROADMAP Queue 1, item 6 'compress/'",
     "ledger": "ROADMAP Queue 1, item 8 'obs/'",
     "phase_timers": "ROADMAP Queue 1, item 8 'obs/'",
     "sketches": "ROADMAP Queue 1, item 8 'obs/'",
@@ -165,8 +186,11 @@ class FLResult:
     # runs: {round, mean_snr_db, mean_est_db, mode_counts, n_active,
     # n_stragglers, airtime_s} (mode_counts indexes the driver's mode
     # table); runs with a downlink add {downlink_airtime_s, downlink_ber,
-    # and for adaptive downlinks downlink_mode_counts}; driverless
-    # downlink runs append {round} and the downlink fields. [] otherwise.
+    # and for adaptive downlinks downlink_mode_counts}; compressed runs add
+    # {comp_ratio (mean kept fraction), comp_bits_on_air (active clients'
+    # on-air bits this round), comp_residual_norm (mean per-client L2 of
+    # the EF residual)} before the downlink fields; driverless downlink or
+    # compressed runs append {round} and their own fields. [] otherwise.
     link: list = dataclasses.field(default_factory=list)
 
 
@@ -193,6 +217,17 @@ def resolve_downlink(downlink, driver):
         return downlink
     if driver is not None:
         return driver.scenario.downlink
+    return None
+
+
+def resolve_compression(compression, driver):
+    """``compression=`` argument -> the run's ``CompressionConfig`` (or
+    ``None``): an explicit argument wins, else a scenario's own
+    ``compression``; ``None`` is the dense uplink."""
+    if compression is not None:
+        return compression
+    if driver is not None:
+        return driver.scenario.compression
     return None
 
 
@@ -399,9 +434,13 @@ class FedAvg:
         return torch.clamp_min(flat.abs().amax(dim=1), 1e-8) * _INV_0_9
 
     def _div(self, deltas, scale):
+        if isinstance(deltas, torch.Tensor):  # a compressed (M, k) leg
+            return deltas / self._expand(scale, deltas)
         return {k: l / self._expand(scale, l) for k, l in deltas.items()}
 
     def _mul(self, deltas, scale):
+        if isinstance(deltas, torch.Tensor):
+            return deltas * self._expand(scale, deltas)
         return {k: l * self._expand(scale, l) for k, l in deltas.items()}
 
     def wrap_uplink(self, deltas, transmit):
@@ -442,8 +481,8 @@ class RoundEngine:
                  downlink=None, compression=None,
                  fused_aggregate: bool = False, ledger=None,
                  phase_timers=None, sketches=None, device=None):
-        given = dict(compression=compression, ledger=ledger,
-                     phase_timers=phase_timers, sketches=sketches)
+        given = dict(ledger=ledger, phase_timers=phase_timers,
+                     sketches=sketches)
         for name, value in given.items():
             if value is not None:
                 raise NotImplementedError(
@@ -460,11 +499,6 @@ class RoundEngine:
         self.fused_aggregate = bool(fused_aggregate)
         self.driver = resolve_scenario(scenario, transport_cfg, self.device)
         if self.driver is not None:
-            scen = self.driver.scenario
-            if scen.compression is not None:
-                raise NotImplementedError(
-                    f"scenario {scen.name!r} brings its own compression, "
-                    f"which is not ported yet: {_NOT_PORTED['compression']}")
             self.select_cfgs = select_mode_cfgs(self.driver)
         # Kept pre-resolution: the downlink derives its own transport from
         # it (an ECRT downlink is priced at the shifted SNR).
@@ -489,7 +523,13 @@ class RoundEngine:
         self._dl_lossless = (self.downlink is not None
                              and not self.downlink.adaptive
                              and self.dl_cfg.mode in ("perfect", "ecrt"))
+        self.compression = resolve_compression(compression, self.driver)
         if self.fused_aggregate:
+            if self.compression is not None:
+                raise ValueError(
+                    "fused_aggregate=True is incompatible with a compressed "
+                    "uplink: the sparse path must scatter per-client "
+                    "coordinates before aggregating")
             if getattr(algorithm, "scale_mode", "none") == "max_abs":
                 raise ValueError(
                     "fused_aggregate=True is incompatible with "
@@ -518,6 +558,7 @@ class RoundEngine:
         key, pk = prng.split(key)
         self.params = algorithm.init_params(pk, self.device)
         self.aux = algorithm.init_opt(self.params)
+        self._init_compression()
         if self.driver is not None:
             key, lk = prng.split(key)
             self.lstate, self.prev_mode, self.prev_est = self.driver.init(
@@ -644,6 +685,139 @@ class RoundEngine:
                 dispatch=self.dispatch, device=dev))
         return dropout_weighted_mean(hat, active), stats
 
+    # -------------------------------------------------------- compression
+
+    def _init_compression(self):
+        """Slot budgets and the EF residual of a compressed run: ``k`` from
+        ``resolve_k``; scenario runs get a per-mode table from the policy's
+        ``compress_ratios`` (bucketed dispatch only) unless ``k`` is
+        explicit; the residual is carried even with ``error_feedback=False``
+        (as zeros), as in the reference."""
+        comp = self.compression
+        self._ef_residual, self._comp_ks = None, None
+        self._comp_dim = self._comp_k = 0
+        if comp is None:
+            return
+        self._comp_dim = sum(p.numel() for p in self.params.values())
+        self._comp_k = sparsify_lib.resolve_k(comp, self._comp_dim)
+        if self.driver is not None:
+            from repro_torch.link import policy as policy_lib
+
+            pol = self.driver.scenario.policy
+            if comp.k is not None:
+                # An explicit budget wins everywhere, so bucketed and
+                # select agree on the slots per client.
+                self._comp_ks = (self._comp_k,) * len(pol.modes)
+            else:
+                if (pol.compress_ratios is not None
+                        and self.dispatch != "bucketed"):
+                    raise ValueError(
+                        "PolicyConfig.compress_ratios (per-mode slot "
+                        "budgets) needs adaptive_dispatch='bucketed'")
+                self._comp_ks = policy_lib.compress_k_table(
+                    pol, self._comp_dim, comp.ratio)
+        self._ef_residual = torch.zeros(
+            (self.num_clients, self._comp_dim), dtype=torch.float32,
+            device=self.device)
+
+    def _selection_keys(self, keys):
+        """rand-k selection keys: the client transport keys ``(C, 2)`` on
+        the selection lane (``None`` for the deterministic methods)."""
+        if self.compression.method != "randk":
+            return None
+        with spans.span("keys"):
+            return prng.fold_in(keys, sparsify_lib.SELECT_KEY_LANE)
+
+    def _uplink_compressed(self, payload, key, rnd):
+        """One compressed round's uplink + aggregation under the run's
+        round shape: ``(aggregate tree, stats)``; updates the EF residual.
+        """
+        comp, algo, dev = self.compression, self.algo, self.device
+        flat, spec = transport_lib._flatten_client_tree(payload)
+        M, D = flat.shape
+        with spans.span("keys"):
+            keys = transport_lib.client_keys(key, M)
+        if rnd is None:
+            vals, idx, self._ef_residual = sparsify_lib.ef_select_batch(
+                self._ef_residual, flat, self._comp_k, comp,
+                self._selection_keys(keys))
+            hat_flat, stats = algo.wrap_uplink(
+                vals, lambda v: framing_lib.sparse_batch_with_keys(
+                    v, idx, D, keys, self.transport_cfg,
+                    transport_lib._resolve_batch_snr(
+                        self.transport_cfg, M, None, dev), comp))
+            hat = transport_lib._unflatten_client_tree(hat_flat, spec)
+            return {k: g.mean(dim=0) for k, g in hat.items()}, stats
+        # Select rounds run the table with its kernel rows cleared and one
+        # budget for every mode; a row does not depend on the rest of its
+        # batch, so both dispatches run each mode on exactly its clients.
+        cfgs = (self.select_cfgs if self.dispatch == "select"
+                else self.driver.mode_cfgs)
+        active = rnd.active.to(dev)
+        acc = self._ef_residual + flat if comp.error_feedback else flat
+        hat_flat, stats, sent = self._sparse_bucketed_uplink(acc, keys, rnd,
+                                                             cfgs)
+        self._ef_residual = (acc - sent * active[:, None]
+                             if comp.error_feedback
+                             else torch.zeros_like(acc))
+        hat = transport_lib._unflatten_client_tree(hat_flat, spec)
+        return dropout_weighted_mean(hat, active), stats
+
+    def _sparse_bucketed_uplink(self, acc, keys, rnd, cfgs):
+        """Per-mode-budget sparse uplink over the round's mode buckets:
+        each bucket selects ``k_m`` coordinates of its rows of ``acc``,
+        rides ``algorithm.wrap_uplink`` and its row of ``cfgs`` (one K1
+        launch per uncoded ``use_kernel`` bucket), and the rows scatter back
+        to client order. Returns ``(dense_hat (M, D), stats, sent (M, D))``
+        with ``sent`` the transmitter-side scatter that error feedback
+        subtracts."""
+        comp, algo = self.compression, self.algo
+        M, D = acc.shape
+        mode_np = rnd.mode.cpu().numpy()
+        snr_vec = transport_lib._resolve_batch_snr(cfgs[0], M, rnd.snr_db,
+                                                   acc.device)
+        order, buckets = transport_lib._buckets(mode_np, len(cfgs))
+        parts_x, parts_sent, parts_st = [], [], []
+        for m, count, idx in buckets:
+            xb, kb, sb = transport_lib._gather_bucket(acc, keys, snr_vec,
+                                                      idx, count, count)
+            vals, sidx = sparsify_lib.select_batch(
+                xb, self._comp_ks[m], comp, self._selection_keys(kb))
+            parts_sent.append(sparsify_lib.scatter_dense_batch(vals, sidx, D))
+            hat_m, st_m = algo.wrap_uplink(
+                vals, lambda v, sidx=sidx, kb=kb, sb=sb, cfg=cfgs[m]: (
+                    framing_lib.sparse_batch_with_keys(
+                        v, sidx, D, kb, cfg, sb, comp)))
+            parts_x.append(hat_m)
+            parts_st.append(st_m)
+        dense_hat, stats = transport_lib._scatter_bucket_parts(
+            parts_x, parts_st, order)
+        inv = torch.as_tensor(transport_lib._inverse(order),
+                              device=acc.device)
+        sent = torch.cat(parts_sent)[inv]
+        stats.mode_idx = torch.as_tensor(mode_np, device=acc.device)
+        return dense_hat, stats, sent
+
+    def _compression_record(self, stats, rnd) -> dict:
+        """The round's compression telemetry: the mean kept fraction (per-mode
+        budgets through the round's mode vector), the active clients' bits
+        on air (float32 numpy reductions, as the reference), and the mean
+        per-client L2 norm of the EF residual (reduced on the device)."""
+        if rnd is not None:
+            k_vec = np.asarray(self._comp_ks)[np.asarray(rnd.mode.cpu())]
+            active = rnd.active.cpu().numpy()
+        else:
+            k_vec = np.full(self.num_clients, self._comp_k)
+            active = np.ones(self.num_clients, np.float32)
+        boa = stats.bits_on_air.cpu().numpy().astype(np.float32)
+        res = self._ef_residual
+        return {
+            "comp_ratio": float(k_vec.mean() / max(self._comp_dim, 1)),
+            "comp_bits_on_air": float((boa * active).sum()),
+            "comp_residual_norm": float(torch.sqrt(torch.mean(torch.sum(
+                res * res, dim=1)))),
+        }
+
     # ---------------------------------------------------------------- run
 
     def run(self) -> FLResult:
@@ -684,7 +858,9 @@ class RoundEngine:
             _sync(dev)
             t1 = time.perf_counter()
             with spans.collect(dev) as parts:
-                if driver is None:
+                if self.compression is not None:
+                    agg, stats = self._uplink_compressed(payload, up_key, rnd)
+                elif driver is None:
                     agg, stats = self._uplink(payload, rk)
                 else:
                     agg, stats = self._uplink_scenario(payload, up_key, rnd)
@@ -711,6 +887,8 @@ class RoundEngine:
                     per_client_air = per_client_air * self.ecrt_air_scale
                 rec = {"round": r}
             cum_air += float(torch.sum(per_client_air))
+            if self.compression is not None:
+                rec.update(self._compression_record(stats, rnd))
             if dstats is not None:
                 fields, dl_air = self._downlink_record(dstats)
                 rec.update(fields)

@@ -24,6 +24,13 @@ number of tiles) it equals the plain K1 on the same tile bit for bit,
 and a FedAvg round behind a downlink launches K1 twice (layered) or K1
 and K2 once each (fused) and tracks the CPU plain path.
 
+The sparse uplink sends each client's ``k`` selected values as one K1
+batch, one zero-padded tile per client: at the main path's ``(100, 437)``
+shape it equals the plain K1 on the same tile bit for bit (errors on the
+padding subtracted), a compressed round launches K1 once, and error
+feedback keeps ``scatter(values) + residual == acc`` bit for bit on the
+card, with the CPU's selection on NaN, +-inf, +-0 and ties.
+
 The layered PHY and the ECRT chain, which launch no kernel, are held
 against themselves on the CPU: the layered batch under the same edge rule
 with the tolerance of ``layered_edge`` (its normals, ``torch.erfinv``, are
@@ -617,3 +624,93 @@ def test_fedavg_downlink_round_card_vs_cpu(cuda_device, fused):
     assert a.airtime_s == pytest.approx(b.airtime_s, rel=1e-6)
     assert set(a.phase_s[0]) >= {"downlink", "downlink_keys",
                                  "downlink_kernel"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [437, 218, 2184])
+def test_sparse_value_leg_k1_matches_plain(cuda_device, k):
+    """``(100, k)`` values on the clients' keys through the sparse batch
+    (one K1 launch): the plain K1 on the zero-padded tile, bit for bit."""
+    from repro_torch.compress import framing as TF
+    from repro_torch.core import prng as P
+
+    c, dim = 100, 21840
+    g = torch.Generator().manual_seed(k)
+    vals = (torch.randn((c, k), generator=g) * 1e-2).to(cuda_device)
+    idx = torch.sort(torch.rand((c, dim), generator=g).argsort(dim=1)[:, :k],
+                     dim=1).values.to(cuda_device)
+    cfg = TT.TransportConfig(mode="approx", use_kernel=True,
+                             channel=TCH.ChannelConfig(snr_db=10.0))
+    key = P.PRNGKey(5)
+    TAC.reset_launch_counts()
+    dense, st = TF.transmit_sparse_batch(
+        vals, idx, dim, key, cfg, TF.sparsify_lib.CompressionConfig(
+            header="perfect"))
+    assert TAC.launch_counts() == {"k0": 0, "k1": 1, "k2": 0}
+    keys = TT.client_keys(key, c)
+    xg, sg = TT._batch_with_keys(vals, keys, cfg, None)
+    seeds = TO._seed_from_key(keys).to(cuda_device)
+    npow, gains = TO._link_params(cfg, c, None, cuda_device)
+    tile = torch.nn.functional.pad(vals, (0, (-k) % 1024))
+    xp, ep = TR.approx_channel_batch_ref(tile, seeds, npow, gains)
+    assert torch.equal(_bits(xg), _bits(xp[:, :k]))
+    assert torch.equal(sg.bit_errors.to(torch.int32),
+                       (ep - TO._padding_errors(xp[:, k:], 32)).to(
+                           torch.int32))
+    # the dense rows hold the received values at the sent indices
+    assert torch.equal(_bits(dense.gather(1, idx)), _bits(xg))
+    assert int(st.bits_on_air[0]) == 32 * k + -(-15 * k // 2) * 2
+
+
+@pytest.mark.cuda
+def test_error_feedback_identity_on_card(cuda_device):
+    from repro_torch.compress import sparsify as TS
+
+    m, d, k = 100, 21840, 437
+    g = torch.Generator().manual_seed(3)
+    res = (torch.randn((m, d), generator=g) * 1e-2).to(cuda_device)
+    grads = (torch.round(torch.randn((m, d), generator=g) * 64)
+             / 2**12).to(cuda_device)
+    active = (torch.arange(m) % 7 != 3).float().to(cuda_device)
+    for method in ("topk", "randk", "threshold"):
+        cfg = TS.CompressionConfig(method=method, k=k, threshold=0.01)
+        keys = TS.selection_keys(torch.tensor([0, 9]), m)
+        vals, idx, new = TS.ef_select_batch(res, grads, k, cfg, keys,
+                                            active=active)
+        acc = res + grads
+        sent = TS.scatter_dense_batch(vals, idx, d)
+        on = active.bool()
+        assert torch.equal(_bits((sent + new)[on]), _bits(acc[on]))
+        assert torch.equal(_bits(new[~on]), _bits(acc[~on]))
+        vc, ic, nc = TS.ef_select_batch(res.cpu(), grads.cpu(), k, cfg, keys,
+                                        active=active.cpu())
+        assert torch.equal(idx.cpu(), ic)
+        assert torch.equal(_bits(new.cpu()), _bits(nc))
+    special = grads.clone()
+    special[:, :6] = torch.tensor([float("nan"), float("inf"),
+                                   float("-inf"), 0.0, -0.0, float("nan")])
+    assert torch.equal(TS.select_topk(special, k)[1].cpu(),
+                       TS.select_topk(special.cpu(), k)[1])
+
+
+@pytest.mark.cuda
+def test_compressed_round_launches_k1_once(cuda_device):
+    from repro_torch.compress import sparsify as TS
+    from repro_torch.configs.mnist_cnn import config
+    from repro_torch.fl.loop import run_fl
+
+    rng = np.random.default_rng(2)
+    cx = rng.uniform(0, 1, (4, 16, 28, 28)).astype(np.float32)
+    cy = rng.integers(0, 10, (4, 16)).astype(np.int32)
+    cfg = TT.TransportConfig(mode="approx", use_kernel=True,
+                             channel=TCH.ChannelConfig(snr_db=10.0))
+    kw = dict(n_rounds=2, batch_per_round=8, eval_every=1,
+              compression=TS.CompressionConfig())
+    TAC.reset_launch_counts()
+    a = run_fl(config(), cfg, cx, cy, cx[0], cy[0], **kw)
+    assert TAC.launch_counts() == {"k0": 0, "k1": 2, "k2": 0}
+    b = run_fl(config(), cfg, cx, cy, cx[0], cy[0], device="cpu", **kw)
+    assert [r["comp_bits_on_air"] for r in a.link] == [
+        r["comp_bits_on_air"] for r in b.link] == [4 * 20540.0] * 2
+    assert all(abs(p - q) <= 2 / 16 + 1e-6
+               for p, q in zip(a.accuracy, b.accuracy))

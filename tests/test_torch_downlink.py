@@ -53,6 +53,7 @@ from repro_torch.core import channel as TCH  # noqa: E402
 from repro_torch.core import latency as TL  # noqa: E402
 from repro_torch.core import prng as P  # noqa: E402
 from repro_torch.core import transport as TT  # noqa: E402
+from repro_torch.fl import cnn as TC  # noqa: E402
 from repro_torch.fl import engine as TE  # noqa: E402
 from repro_torch.kernels import ops as TO  # noqa: E402
 from repro_torch.kernels import ref as TR  # noqa: E402
@@ -609,11 +610,9 @@ def test_non_finite_received_weights_propagate(world):
     """A naive downlink has no clamp, so a client's copy may hold NaN or
     inf weights. Neither package sanitizes them: that client's gradients
     come out non-finite in both, and every other client's are unchanged.
-    Which entries are non-finite differs (ROADMAP Queue 3): at a NaN
-    activation PyTorch's relu passes the gradient where JAX's passes 0,
-    and PyTorch's max-pool routes it to the window's last NaN where
-    XLA's select-and-scatter routes it to the first maximum after the last
-    NaN — pinned here on the smallest inputs."""
+    The port's relu and max-pool carry the reference's derivatives
+    (``fl/cnn.py``), so which entries are non-finite, and which are NaN,
+    is the reference's in every leaf of every client."""
     cx, cy, _, _ = world
     with jax.threefry_partitionable(True):
         jp = JC.init_params(jax.random.PRNGKey(2), j_config())
@@ -630,26 +629,72 @@ def test_non_finite_received_weights_propagate(world):
         torch.from_numpy(yb.astype(np.int64)))
     for k in jp:
         a, b = np.asarray(gj[k]), gt[k].numpy()
+        for c in range(4):
+            np.testing.assert_array_equal(np.isfinite(b[c]),
+                                          np.isfinite(a[c]), err_msg=k)
+            np.testing.assert_array_equal(np.isnan(b[c]), np.isnan(a[c]),
+                                          err_msg=k)
         for c in (0, 3):  # finite copies: finite, the reference's values
             assert np.isfinite(b[c]).all()
             np.testing.assert_allclose(b[c], a[c], rtol=1e-4, atol=1e-6)
-        print(k, "non-finite entries, clients 1 / 2: reference",
-              [int((~np.isfinite(a[c])).sum()) for c in (1, 2)], "port",
-              [int((~np.isfinite(b[c])).sum()) for c in (1, 2)])
     for c in (1, 2):
         assert not all(np.isfinite(gt[k][c].numpy()).all() for k in jp)
-        assert not all(np.isfinite(np.asarray(gj[k][c])).all() for k in jp)
-    # the two derivatives at a NaN activation
-    nan = np.float32(np.nan)
-    _, vjp = jax.vjp(jax.nn.relu, jnp.asarray([nan]))
-    assert float(vjp(jnp.ones(1))[0][0]) == 0.0
-    xt = torch.tensor([nan], requires_grad=True)
-    torch.relu(xt).sum().backward()
-    assert float(xt.grad[0]) == 1.0
-    win = np.array([nan, 1, 2, 3], np.float32).reshape(1, 1, 2, 2)
-    _, vjp = jax.vjp(JC._pool2, jnp.asarray(win))
-    np.testing.assert_array_equal(
-        np.asarray(vjp(jnp.ones((1, 1, 1, 1)))[0]).reshape(-1), [0, 0, 0, 1])
+
+
+_NAN, _INF = np.float32(np.nan), np.float32(np.inf)
+
+
+@pytest.mark.parametrize("window", [
+    [_NAN, 1, 2, 3], [1, _NAN, 2, 3], [3, _NAN, 2, 1], [_INF, _NAN, 1, 2],
+    [1, 1, 0, 0], [2, 3, 3, 1], [-_INF] * 4],
+    ids=["nan-first", "nan-second", "nan-then-descending", "inf-nan",
+         "tie", "tie-after-first", "all-neg-inf"])
+def test_pool_derivative_matches_reference(window):
+    """The 2x2 max-pool's forward value and gradient routing on one window:
+    the port's ``cnn.pool2`` against the reference's ``_pool2``."""
+    win = np.array(window, np.float32).reshape(1, 1, 2, 2)
+    yj, vjp = jax.vjp(JC._pool2, jnp.asarray(win))
+    gj = np.asarray(vjp(jnp.ones((1, 1, 1, 1)))[0]).reshape(-1)
     xt = torch.tensor(win, requires_grad=True)
-    torch.nn.functional.max_pool2d(xt, 2).sum().backward()
-    np.testing.assert_array_equal(xt.grad.numpy().reshape(-1), [1, 0, 0, 0])
+    yt = TC.pool2(xt)
+    yt.sum().backward()
+    np.testing.assert_array_equal(yt.detach().numpy(), np.asarray(yj))
+    np.testing.assert_array_equal(xt.grad.numpy().reshape(-1), gj)
+
+
+def test_relu_derivative_matches_reference():
+    """``relu`` and its derivative at NaN, 0, 1, -1, +-inf: the port's
+    ``cnn.relu`` against ``jax.nn.relu``."""
+    x = np.array([_NAN, 0, 1, -1, _INF, -_INF], np.float32)
+    yj, vjp = jax.vjp(jax.nn.relu, jnp.asarray(x))
+    gj = np.asarray(vjp(jnp.ones(x.shape))[0])
+    np.testing.assert_array_equal(gj, [0, 0, 1, 0, 1, 0])
+    xt = torch.tensor(x, requires_grad=True)
+    yt = TC.relu(xt)
+    yt.sum().backward()
+    np.testing.assert_array_equal(yt.detach().numpy(), np.asarray(yj))
+    np.testing.assert_array_equal(xt.grad.numpy(), gj)
+
+
+@pytest.mark.parametrize("algo", ["fedsgd", "fedavg"])
+def test_repair_keeps_finite_gradient_bits(monkeypatch, world, algo):
+    """On finite weights the repaired relu and pool give PyTorch's own
+    values and gradients bit for bit: the payload with ``cnn.relu`` /
+    ``cnn.pool2`` equals the one with ``torch.relu`` / ``max_pool2d``
+    (MNIST's zero background makes many exact-zero pre-activations)."""
+    cx, cy, _, _ = world
+    params = TE.FedSGD(t_config()).init_params(P.PRNGKey(3), "cpu")
+    out = []
+    for relu, pool in ((TC.relu, TC.pool2),
+                       (torch.relu,
+                        lambda x: torch.nn.functional.max_pool2d(x, 2))):
+        monkeypatch.setattr(TC, "relu", relu)
+        monkeypatch.setattr(TC, "pool2", pool)
+        a = (TE.FedSGD(t_config(), batch_per_round=16) if algo == "fedsgd"
+             else TE.FedAvg(t_config(), local_steps=2, batch_per_step=8))
+        xb, yb = a.sample(np.random.default_rng(1), cx, cy, "cpu")
+        out.append(a.payload(params, xb, yb))
+    for k in params:
+        assert torch.equal(out[0][k].view(torch.int32),
+                           out[1][k].view(torch.int32)), k
+    assert any(bool((out[0][k] == 0).any()) for k in params)

@@ -5,10 +5,12 @@
   AST scan): all three run on a GPU machine without JAX.
 * Entry points run on the GPU unless asked for the CPU: without a GPU
   they raise, with ``device="cpu"`` they run.
-* Engine arguments not ported yet raise ``NotImplementedError`` naming
-  the ROADMAP item, 6 to 8 (so does a scenario that brings compression);
-  an unknown transport mode, dispatch, or ``fused_aggregate`` with the
-  select dispatch raises ``ValueError``. The downlink and FedAvg run.
+* Engine arguments not ported yet (``ledger=``, ``phase_timers=``,
+  ``sketches=``) raise ``NotImplementedError`` naming ROADMAP item 8; an
+  unknown transport mode, dispatch, or ``fused_aggregate`` with the
+  select dispatch raises ``ValueError``. The downlink, FedAvg,
+  ``compression=`` and the ``iot-lowrate`` preset (which brings its own
+  compression) run.
 """
 
 import ast
@@ -214,21 +216,35 @@ def test_unknown_mode_raises():
 @pytest.mark.parametrize("arg", ["scenario", "compression", "ledger",
                                  "phase_timers", "sketches"])
 def test_unported_engine_arguments_raise(arg):
-    """``scenario=`` is ported; a scenario that brings compression still
-    raises, naming the compression item."""
-    value = "iot-lowrate" if arg == "scenario" else object()
-    item = {"scenario": "item 6", "compression": "item 6"}.get(arg, "item 8")
+    """``ledger=``, ``phase_timers=`` and ``sketches=`` raise, naming item
+    8. ``scenario=`` and ``compression=`` are ported: a scenario that brings
+    compression and an explicit ``CompressionConfig`` run a round and
+    report the compression fields."""
     for run in (run_fl, run_fedavg):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
+        if arg in ("scenario", "compression"):
+            value = ("iot-lowrate" if arg == "scenario"
+                     else TS.CompressionConfig())
+            res = run(config(), _approx(), *_world(), n_rounds=1,
+                      device="cpu", **{arg: value})
+            assert res.link[0]["comp_bits_on_air"] > 0
+            continue
+        with pytest.raises(NotImplementedError, match="ROADMAP.*item 8"):
             run(config(), _approx(), *_world(), n_rounds=1, device="cpu",
-                **{arg: value})
+                **{arg: object()})
 
 
 @pytest.mark.parametrize("name,item", [("iot-lowrate", "item 6")])
 def test_scenarios_with_unported_legs_raise(name, item):
-    with pytest.raises(NotImplementedError, match=item):
+    """The preset that raised until its leg (``item``) was ported now runs,
+    its per-mode slot budgets under the bucketed dispatch; under select its
+    ``compress_ratios`` raise ``ValueError``, as in the reference."""
+    res = run_fl(config(), _approx(), *_world(), n_rounds=1,
+                 batch_per_round=4, device="cpu", scenario=name)
+    assert list(res.link[0])[7:] == ["comp_ratio", "comp_bits_on_air",
+                                     "comp_residual_norm"]
+    with pytest.raises(ValueError, match="bucketed"):
         run_fl(config(), _approx(), *_world(), n_rounds=1, device="cpu",
-               scenario=name)
+               scenario=name, adaptive_dispatch="select")
 
 
 @pytest.mark.parametrize("name", ["static-noisy-dl", "vehicular-noisy-dl"])
