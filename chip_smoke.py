@@ -6,7 +6,8 @@
 
 Drives the port (``src/repro_torch``) through its main path — the paper's
 FedSGD rounds over the approximate uplink, then the link-adaptation,
-FedAvg, downlink and sparse-uplink rounds built on it — and holds both
+FedAvg, downlink and sparse-uplink rounds built on it, with the
+observability sinks attached — and holds both
 CUDA kernels against their plain PyTorch versions. Phases, each of which
 fails the run
 (non-zero exit) when it fails:
@@ -108,6 +109,25 @@ fails the run
    order on NaN, +-inf, +-0 and ties against the CPU; a 6-client
    ``iot-lowrate`` run on the card against the CPU: the same modes and
    selected indices at every round, accuracy within 2 test images.
+5g. The observability sinks at full width (the same world and base), 3
+   rounds each, every run twice, with its sinks and without: (a)
+   driverless FedSGD, layered (K1) and fused (K2), with a ledger and phase
+   timers; (b) ``vehicular`` under bucketed layered, bucketed fused and
+   select with a ledger, timers and sketches; (c) FedSGD top-k behind an
+   approx downlink with a ledger and timers. Each run with sinks equals
+   its twin without them and the earlier phase's run of its shape (5, 5d)
+   bit for bit: params, accuracy, airtime, link, launches a round (one K1
+   or K2 a round on (a), one per uncoded bucket on (b), two K1 on (c)).
+   Each round's ``ber`` sketch counts the active clients and ``snr_db``
+   every client; (c)'s records carry the ``comp_*`` and ``downlink_*``
+   fields and their link view equals the twin's link. Every ledger (under
+   ``build/chip_smoke_obs/``) validates, reads back to ``FLResult.link``,
+   renders as OpenMetrics text through ``registry_from_ledger``, and its
+   provenance names the card. Round 0's per-client arrays of (b), copied
+   to the CPU, give the card's bucket counts and exemplars there. Printed
+   per run: the timers' report, the ``telemetry`` scope's first and
+   steady median time, and the wall and round times with and without the
+   sinks.
 6. Times at the main-path shape (C=100, N=22,528, QPSK, f32; K0 at C=1):
    kernel and plain version with CUDA events (median of single launches
    after a warm-up), each kernel's bound from bytes and operations, the
@@ -119,7 +139,7 @@ fails the run
    round 0's ``iot-lowrate`` uncoded buckets), one padded tile a client,
    beside the bound of the ``k`` words.
 7. The result: a JSON line of the kernels (``launches`` counts phase 5's,
-   5e's and 5f's runs), ``nvidia-smi``'s line, and as the last line
+   5e's, 5f's and 5g's runs), ``nvidia-smi``'s line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Needs one GPU, no network, and finishes in a few minutes. Exits non-zero,
@@ -138,6 +158,8 @@ import dataclasses  # noqa: E402
 import json  # noqa: E402
 import math  # noqa: E402
 import pathlib  # noqa: E402
+import re  # noqa: E402
+import shutil  # noqa: E402
 import statistics  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
@@ -582,7 +604,10 @@ def _world(n_clients, small: bool):
     return cx, cy, ti, tl
 
 
-def phase_main_path(torch, device, small: bool) -> dict:
+def phase_main_path(torch, device, small: bool) -> tuple:
+    """Phase 5: the main path at full width. Returns its launches and its
+    two results (layered, fused), which phase 5g holds sinks-on runs
+    against."""
     from repro_torch.configs.mnist_cnn import config
     from repro_torch.core import channel, prng, transport
     from repro_torch.fl import cnn
@@ -597,7 +622,7 @@ def phase_main_path(torch, device, small: bool) -> dict:
         mode="approx", modulation="qpsk",
         channel=channel.ChannelConfig(snr_db=10.0), use_kernel=True)
     rounds = 3
-    launches = {}
+    launches, results = {}, {}
     for fused, kernel in ((False, "k1"), (True, "k2")):
         ac.reset_launch_counts()
         res = run_fl(cfg, tcfg, cx, cy, ti, tl, n_rounds=rounds,
@@ -616,6 +641,7 @@ def phase_main_path(torch, device, small: bool) -> dict:
                "accuracy is not finite")
         _check(all(math.isfinite(a) and a > 0 for a in res.airtime_s),
                "airtime is not finite")
+        results[fused] = res
         name = "fused (K2)" if fused else "layered (K1)"
         _log(f"  {name}: {n_clients} clients, launches {counts}, accuracy "
              f"{res.accuracy}, airtime {res.airtime_s} s")
@@ -628,7 +654,7 @@ def phase_main_path(torch, device, small: bool) -> dict:
         cnn.init_params(prng.PRNGKey(0), cfg, "cpu"))
     payload = sum(v.numel() for v in leaves)
     _check(payload == 21840, f"paper CNN has {payload} parameters, not 21840")
-    return launches
+    return launches, results
 
 
 def phase_reference(torch, device) -> None:
@@ -907,10 +933,11 @@ def _round0_uplink_key(seed: int):
 
 def _scenario_run(torch, device, cx, cy, ti, tl, scen, rounds, dispatch,
                   fused, capture=None, algo=None, downlink=None,
-                  compression=None):
+                  compression=None, **sinks):
     """One run through ``RoundEngine`` (FedSGD unless ``algo`` is given;
-    driverless with ``scen=None``): launch counts per round (read after
-    each round's uplink), the result, the peak memory and the engine."""
+    driverless with ``scen=None``; ``sinks`` are the observability
+    arguments): launch counts per round (read after each round's uplink),
+    the result, the peak memory and the engine."""
     from repro_torch.configs.mnist_cnn import config
     from repro_torch.core import channel, transport
     from repro_torch.fl import engine
@@ -925,7 +952,7 @@ def _scenario_run(torch, device, cx, cy, ti, tl, scen, rounds, dispatch,
                              seed=0, eval_every=1, scenario=scen,
                              adaptive_dispatch=dispatch,
                              fused_aggregate=fused, downlink=downlink,
-                             compression=compression, device=device)
+                             compression=compression, device=device, **sinks)
     per_round = []
     apply = algo.apply
 
@@ -958,9 +985,11 @@ def _scenario_run(torch, device, cx, cy, ti, tl, scen, rounds, dispatch,
     return res, deltas, total, peak, eng
 
 
-def phase_link(torch, device, small: bool) -> list:
+def phase_link(torch, device, small: bool) -> tuple:
     """Phase 5d: scenario-driven FedSGD rounds over the mixed-mode uplink.
-    Returns round 0's uncoded buckets as ``(k, capacity, count)``."""
+    Returns round 0's uncoded buckets as ``(k, capacity, count)`` and the
+    ``vehicular`` runs' ``(result, launches per round)`` by label, which
+    phase 5g holds sinks-on runs against."""
     from repro_torch.core import aggregation, channel, prng, transport
     from repro_torch.kernels import ops
     from repro_torch.link import scenario as scenario_lib
@@ -974,7 +1003,7 @@ def phase_link(torch, device, small: bool) -> list:
             ("vehicular", "bucketed fused (K2)", "bucketed", True, 3),
             ("vehicular", "select (layered PHY)", "select", False, 3),
             ("iot-flaky", "bucketed layered (K1)", "bucketed", False, 2))
-    rnds, first = [], None
+    rnds, first, results = [], None, {}
     for name, label, dispatch, fused, rounds in runs:
         t0 = time.perf_counter()
         res, deltas, total, peak, eng = _scenario_run(
@@ -1007,6 +1036,8 @@ def phase_link(torch, device, small: bool) -> list:
              f"{secs:.2f} s, launches {total}, accuracy {res.accuracy}, "
              f"cumulative airtime {res.airtime_s} s, peak memory {peak}, "
              f"E[tx] of the ECRT row {drv.mode_cfgs[0].ecrt_expected_tx!r}")
+        if name == "vehicular":
+            results[label] = (res, deltas)
         if first is None:
             first = drv
     # Round 0's real buckets through K1 and K2 against their plain versions.
@@ -1063,7 +1094,7 @@ def phase_link(torch, device, small: bool) -> list:
     if device.type == "cuda":
         _link_card_vs_cpu(torch, device)
     _link_step_times(torch, device, n_clients, first)
-    return buckets
+    return buckets, results
 
 
 def _link_card_vs_cpu(torch, device) -> None:
@@ -1725,6 +1756,221 @@ def _sparse_card_vs_cpu(torch, device) -> None:
          f"CPU {b.accuracy}")
 
 
+_TOP_PHASES = ("link", "downlink", "gradients", "uplink", "apply", "eval")
+_SAMPLE = re.compile(r"[a-zA-Z_:][a-zA-Z0-9_:]*(\{[^}]*\})? \S+")
+
+
+def _openmetrics_ok(text: str) -> bool:
+    """OpenMetrics text: every line a ``# HELP`` / ``# TYPE`` comment or a
+    ``name[{labels}] value`` sample with a numeric value, then ``# EOF``."""
+    lines = text.split("\n")
+    if lines[-2:] != ["# EOF", ""]:
+        return False
+    for line in lines[:-2]:
+        if line.startswith(("# HELP ", "# TYPE ")):
+            continue
+        if not _SAMPLE.fullmatch(line):
+            return False
+        try:
+            float(line.rsplit(" ", 1)[1])
+        except ValueError:
+            return False
+    return True
+
+
+def _check_ledger(torch, device, label, path, res):
+    """A ledger the port wrote: it validates, reads back to
+    ``FLResult.link``, renders as OpenMetrics text, and its provenance
+    names the device."""
+    from repro_torch.obs import ledger, metrics
+
+    problems = ledger.validate_ledger(path)
+    _check(problems == [], f"{label}: ledger does not validate: {problems}")
+    data = ledger.read_ledger(path)
+    _check(data.link == res.link, f"{label}: the ledger's link view differs "
+                                  f"from FLResult.link")
+    text = metrics.registry_from_ledger(path).render()
+    _check(_openmetrics_ok(text), f"{label}: registry_from_ledger did not "
+                                  f"render OpenMetrics text")
+    prov = data.manifest["provenance"]
+    want = (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else "cpu")
+    _check(prov["device"] == want and prov["backend"] == device.type,
+           f"{label}: provenance names {prov['device']!r} / "
+           f"{prov['backend']!r}, not {want!r}")
+    return data, text
+
+
+def _obs_pair(torch, device, label, world, scen, dispatch, fused, out,
+              ref=None, **kw):
+    """One shape with the sinks attached and again without, 3 rounds each:
+    params, accuracy, airtime, link and launches per round bit for bit;
+    against ``ref`` (an earlier phase's sinks-off ``(result, launches per
+    round)``) too. Returns ``(result, launches per round, ledger data, the
+    sinks-off result, launches of both runs)``."""
+    from repro_torch.obs import PhaseTimers
+
+    path = str(out / (re.sub(r"[^a-z0-9]+", "-", label.lower()).strip("-")
+                      + ".jsonl"))
+    timers = PhaseTimers()
+    sinks = dict(ledger=path, phase_timers=timers)
+    if scen is not None:
+        sinks["sketches"] = kw.pop("sketcher", True)
+    res, deltas, total, _, eng = _scenario_run(
+        torch, device, *world, scen, 3, dispatch, fused, **kw, **sinks)
+    bare, bdeltas, btotal, _, beng = _scenario_run(
+        torch, device, *world, scen, 3, dispatch, fused, **kw)
+    for k in eng.params:
+        _check(torch.equal(eng.params[k], beng.params[k]),
+               f"{label}: {k} differs with the sinks attached")
+    _check((res.accuracy, res.airtime_s, res.link, deltas)
+           == (bare.accuracy, bare.airtime_s, bare.link, bdeltas),
+           f"{label}: accuracy, airtime, link or launches differ with the "
+           f"sinks attached")
+    if ref is not None:
+        ref_res, ref_deltas = ref
+        _check((res.accuracy, res.airtime_s, res.link)
+               == (ref_res.accuracy, ref_res.airtime_s, ref_res.link)
+               and (ref_deltas is None or deltas == ref_deltas),
+               f"{label}: differs from the earlier phase's run of this shape")
+    _check(len(res.records) == 3 and res.link == [
+        r.to_link_dict() for r in res.records if r.has_link_fields()],
+        f"{label}: FLResult.link is not the records' link view")
+    data, text = _check_ledger(torch, device, label, path, res)
+    launches = {k: total[k] + btotal[k] for k in total}
+    tel = timers.summary()["telemetry"]
+    _log(f"  {label}: launches a round {deltas} (equal without sinks), "
+         f"accuracy {res.accuracy}; ledger {len(data.rounds)} rounds, "
+         f"{len(data.evals)} evals, {len(text.splitlines())} OpenMetrics "
+         f"lines, provenance {data.manifest['provenance']['device']!r}")
+    _log("    " + timers.report().replace("\n", "\n    "))
+    _log(f"    telemetry scope: first {tel['first_s'] * 1e3:.3f} ms, steady "
+         f"median {tel['steady_median_s'] * 1e3:.3f} ms; wall "
+         f"{res.wall_s * 1e3:.1f} ms with sinks, {bare.wall_s * 1e3:.1f} ms "
+         f"without; round (phase_s sum) with / without: " + ", ".join(
+             f"{sum(a.get(k, 0.0) for k in _TOP_PHASES) * 1e3:.2f} / "
+             f"{sum(b.get(k, 0.0) for k in _TOP_PHASES) * 1e3:.2f} ms"
+             for a, b in zip(res.phase_s, bare.phase_s)))
+    return res, deltas, data, bare, launches
+
+
+def phase_obs(torch, device, small: bool, main_runs: dict,
+              link_runs: dict) -> dict:
+    """Phase 5g: the observability sinks at full width. Returns the K1/K2
+    launches of its runs (main-path launches)."""
+    from repro_torch.compress import sparsify
+    from repro_torch.link import scenario as scenario_lib
+    from repro_torch.obs import metrics
+
+    _log("== phase 5g: observability at full width")
+    on_card = device.type == "cuda"
+    out = ROOT / "build" / "chip_smoke_obs"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    launches = {"k0": 0, "k1": 0, "k2": 0}
+
+    def add(more):
+        for k in launches:
+            launches[k] += more[k]
+
+    # (a) Driverless FedSGD, layered (K1) and fused (K2): ledger + timers,
+    # against phase 5's runs.
+    n_main = 4 if small else 100
+    world = _world(n_main, small)
+    for fused, kernel in ((False, "k1"), (True, "k2")):
+        label = f"(a) driverless FedSGD, {'fused' if fused else 'layered'}"
+        res, deltas, _, _, more = _obs_pair(
+            torch, device, label, world, None, "bucketed", fused, out,
+            ref=(main_runs[fused], None))
+        add(more)
+        want = {"k0": 0, "k1": 0, "k2": 0}
+        want[kernel] = 1 if on_card else 0
+        _check(all(d == want for d in deltas),
+               f"{label}: launches {deltas}, expected {want} a round")
+        _check(res.link == [] and len(res.records) == 3
+               and all(r.uplink_bits > 0 for r in res.records),
+               f"{label}: records without the uplink_* fields")
+    # (b) vehicular under the three round shapes, all three sinks, against
+    # phase 5d's runs; round 0's sketch inputs captured for the CPU check.
+    n_link = 8 if small else 100
+    world = _world(n_link, small)
+    sketcher = metrics.RoundSketcher(n_link, device=device)
+    inputs, inner = [], sketcher.round_group
+
+    def captured(key, **kw):
+        inputs.append((key, kw))
+        return inner(key, **kw)
+
+    sketcher.round_group = captured
+    for label, dispatch, fused in (
+            ("bucketed layered (K1)", "bucketed", False),
+            ("bucketed fused (K2)", "bucketed", True),
+            ("select (layered PHY)", "select", False)):
+        kw = dict(sketcher=sketcher) if not inputs else {}
+        res, _, _, _, more = _obs_pair(
+            torch, device, f"(b) vehicular, {label}", world, "vehicular",
+            dispatch, fused, out, ref=link_runs[label], **kw)
+        add(more)
+        for r, rec in enumerate(res.records):
+            sk = rec.sketches
+            _check(sk["ber"]["total"] == rec.n_active
+                   and sk["snr_db"]["total"] == n_link
+                   and sk["est_db"]["total"] == n_link,
+                   f"(b) {label} round {r}: sketch totals ber "
+                   f"{sk['ber']['total']} (active {rec.n_active}), snr "
+                   f"{sk['snr_db']['total']}")
+        if kw:
+            group0 = res.records[0].sketches
+    # Card against the CPU: round 0's per-client arrays (SNR, estimate,
+    # BER, airtime, mode, active) copied over, through a fresh sketcher.
+    key0, arrs0 = inputs[0]
+    arrs0_host = {k: v.cpu() if isinstance(v, torch.Tensor) else v
+                  for k, v in arrs0.items()}
+    host = metrics.RoundSketcher(n_link, device="cpu").round_group(
+        key0.cpu(), **arrs0_host)
+    _check(json.dumps(host) == json.dumps(group0),
+           "round 0's sketch counts or exemplars on the card differ from "
+           "the CPU's")
+    ex = group0["exemplars"]
+    _log(f"  round 0 sketches, card == CPU: counts of "
+         f"{sorted(k for k in group0 if k != 'exemplars')}, worst-BER "
+         f"clients {[e['client'] for e in ex['worst_ber']]}, reservoir "
+         f"clients {[e['client'] for e in ex['reservoir']]}; ber counts "
+         f"(non-zero slots) {[(i, c) for i, c in enumerate(group0['ber']['counts']) if c]}")
+    # The sketch reduction alone, as the engine calls it (the link step's
+    # tensors on the host, BER and airtime on the device) and on a host
+    # sketcher (BER and airtime copied over): medians of 20 calls.
+    clock = Clock(torch, device)
+    card_sk = metrics.RoundSketcher(n_link, device=device)
+    host_sk = metrics.RoundSketcher(n_link, device="cpu")
+    t_dev = clock.host_median_ms(
+        lambda: card_sk.round_group(key0, **arrs0), 20)
+    t_host = clock.host_median_ms(lambda: host_sk.round_group(
+        key0, **{k: v.cpu() if isinstance(v, torch.Tensor) else v
+                 for k, v in arrs0.items()}), 20)
+    _log(f"  round_group alone ({n_link} clients, 5 metrics): "
+         f"{device.type} sketcher {t_dev:.3f} ms, host sketcher "
+         f"{t_host:.3f} ms (median of 20)")
+    # (c) Compressed (top-k) behind an approx downlink, with a ledger.
+    world = _world(8 if small else 100, small)
+    res, deltas, data, bare, more = _obs_pair(
+        torch, device, "(c) FedSGD top-k + approx downlink", world, None,
+        "bucketed", False, out, compression=sparsify.CompressionConfig(),
+        downlink=scenario_lib.DownlinkConfig(mode="approx",
+                                             snr_offset_db=0.0))
+    add(more)
+    want = {"k0": 0, "k1": 2 if on_card else 0, "k2": 0}
+    _check(all(d == want for d in deltas),
+           f"(c): launches {deltas}, expected {want} a round")
+    fields = ("comp_ratio", "comp_bits_on_air", "comp_residual_norm",
+              "downlink_airtime_s", "downlink_ber")
+    _check(all(getattr(r, f) is not None for r in data.rounds
+               for f in fields), "(c): records lack comp_* / downlink_*")
+    _check([r.to_link_dict() for r in res.records] == bare.link,
+           "(c): the records' link view differs from the sinks-off link")
+    return launches
+
+
 def phase_times(torch, device, small: bool, launches: dict, sass: dict,
                 mhz, buckets=(), sparse_shapes=()) -> list:
     from repro_torch.core import aggregation, prng, transport
@@ -1902,15 +2148,18 @@ def main(argv=None) -> int:
         smi, mhz = phase_device(torch, device)
         sass = phase_build(device)
         phase_kernels(torch, device, small)
-        launches = phase_main_path(torch, device, small)
+        launches, main_runs = phase_main_path(torch, device, small)
         if device.type == "cuda":
             phase_reference(torch, device)
         phase_layered(torch, device, small)
-        buckets = phase_link(torch, device, small)
+        buckets, link_runs = phase_link(torch, device, small)
         for k, v in phase_downlink(torch, device, small).items():
             launches[k] += v
         sparse_launches, sparse_shapes = phase_sparse(torch, device, small)
         for k, v in sparse_launches.items():
+            launches[k] += v
+        for k, v in phase_obs(torch, device, small, main_runs,
+                              link_runs).items():
             launches[k] += v
         rows = phase_times(torch, device, small, launches, sass, mhz,
                            buckets, sparse_shapes)

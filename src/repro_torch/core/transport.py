@@ -165,6 +165,38 @@ class TxStats:
         """End-to-end payload bit-error rate (``bit_errors / n_bits``)."""
         return self.bit_errors / torch.clamp_min(self.n_bits, 1.0)
 
+    def round_summary(self) -> dict:
+        """Cohort aggregates as Python floats: the ``uplink_*`` fields of
+        ``repro_torch.obs.records.RoundRecord``. Copies the per-client
+        fields to the host and reduces them in float64 with numpy, as the
+        reference; ``uplink_ber`` is the pooled BER (total errors over
+        total offered bits). The engine calls it only with a ledger
+        attached."""
+        def f64(t):
+            return t.detach().cpu().numpy().astype(np.float64)
+
+        bits, errors = f64(self.n_bits), f64(self.bit_errors)
+        out = {
+            "uplink_symbols": float(f64(self.data_symbols).sum()),
+            "uplink_bits": float(bits.sum()),
+            "uplink_bit_errors": float(errors.sum()),
+            "uplink_ber": float(errors.sum() / max(bits.sum(), 1.0)),
+            "uplink_mean_tx": float(np.mean(f64(self.transmissions))),
+        }
+        if self.bits_on_air is not None:
+            out["uplink_bits_on_air"] = float(f64(self.bits_on_air).sum())
+        return out
+
+    def client_metrics(self) -> dict:
+        """Per-client tensors for the sketches, on the stats' device and
+        without a host copy, keyed by ``repro_torch.obs.metrics`` metric
+        names."""
+        out = {"ber": self.ber, "transmissions": self.transmissions,
+               "n_bits": self.n_bits}
+        if self.bits_on_air is not None:
+            out["bits_on_air"] = self.bits_on_air
+        return out
+
 
 def _stats(data_symbols, transmissions, bit_errors, n_bits, bits_on_air=None,
            *, device=None) -> TxStats:

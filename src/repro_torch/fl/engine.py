@@ -74,8 +74,11 @@ the downlink-free rounds as they were.
 
 The per-client airtime is the driver's (mode-priced, straggler-scaled,
 zero for dropped clients) or ``round_airtime`` (driverless), plus the
-broadcast's airtime; ``FLResult.link`` holds the reference's per-round
-telemetry dicts in its key order.
+broadcast's airtime. Each round's telemetry is a typed
+``repro_torch.obs.records.RoundRecord`` in ``FLResult.records`` (one per
+round, driverless rounds included); ``FLResult.link`` is the
+``to_link_dict()`` view of the records that have link fields, the
+reference's per-round dicts in its key order.
 
 Compressed uplinks (``compression=CompressionConfig(...)``, or a scenario
 that brings one, as ``iot-lowrate`` does) replace each round's dense
@@ -128,14 +131,35 @@ each op costs less there than a launch on the GPU (measured by
 its key's device, so moving the key moves the schedule; the layered PHY
 moves the client keys to the payload's device, where it draws per symbol.
 
-Not ported yet (raise ``NotImplementedError`` naming the ROADMAP item):
-``ledger=``, ``phase_timers=`` and ``sketches=`` (item 8); the
-asynchronous engine (item 7); the typed ``RoundRecord`` view of
-``FLResult.link`` (item 8).
+Observability sinks (``repro_torch.obs``), each a pure observer: a run
+with any of them is bit for bit the run without (params, accuracy,
+airtime, ``FLResult.link``, launch counters).
+
+* ``ledger=`` (a path or a ``RunLedger``) writes the reference's JSONL
+  ledger: the manifest (config fingerprint, equal to the reference's for
+  equal arguments; provenance with the device), one line per round
+  record, with the ``uplink_*`` aggregates of ``TxStats.round_summary``
+  (a host copy made only with a ledger attached), one per eval, and the
+  summary (with ``phases`` and ``sketches`` when those sinks are on).
+* ``phase_timers=`` (a ``PhaseTimers``) times the reference's scopes:
+  ``sample``, ``round`` (link step through apply), ``telemetry``
+  (airtime, the record, its ledger line and sketches; one scope a round)
+  and ``eval``. On CUDA each scope closes after a device synchronise, so
+  it reads device time.
+* ``sketches=`` (``True``, a layout dict or a ``RoundSketcher``) needs a
+  scenario (``ValueError`` otherwise, as the reference): each round's
+  per-client SNR, estimate, BER (K1's or K2's per-client error counts on
+  kernel rounds), airtime, mode dwell and downlink BER become bucket
+  counts and exemplars on the engine's device, keyed by the round key on
+  the reserved obs lane.
+
+The asynchronous engine (ROADMAP item 7) is not ported yet; its
+``EventRecord`` and ``TraceRecorder`` are.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 
@@ -151,19 +175,17 @@ from repro_torch.core import latency as latency_lib
 from repro_torch.core import prng
 from repro_torch.core import transport as transport_lib
 from repro_torch.fl import cnn
+from repro_torch.obs import ledger as ledger_lib
+from repro_torch.obs import metrics as metrics_lib
+from repro_torch.obs import records as records_lib
 from repro_torch.obs import spans
+from repro_torch.obs import timers as timers_lib
 from repro_torch.optim.sgd import sgd as make_sgd
 
 __all__ = ["FLResult", "FedSGD", "FedAvg", "RoundEngine",
            "resolve_ecrt_analytic", "resolve_scenario", "resolve_downlink",
            "resolve_compression", "select_mode_cfgs",
-           "dropout_weighted_mean", "link_telemetry"]
-
-_NOT_PORTED = {
-    "ledger": "ROADMAP Queue 1, item 8 'obs/'",
-    "phase_timers": "ROADMAP Queue 1, item 8 'obs/'",
-    "sketches": "ROADMAP Queue 1, item 8 'obs/'",
-}
+           "dropout_weighted_mean"]
 
 
 @dataclasses.dataclass
@@ -192,6 +214,15 @@ class FLResult:
     # the EF residual)} before the downlink fields; driverless downlink or
     # compressed runs append {round} and their own fields. [] otherwise.
     link: list = dataclasses.field(default_factory=list)
+    # One ``repro_torch.obs.records.RoundRecord`` per round, rounds
+    # without link fields included; ``link`` is the ``to_link_dict()``
+    # view of the records that have any. With a ledger attached the
+    # records also carry the ``uplink_*`` aggregates, with sketches the
+    # round's ``sketches`` group.
+    records: list = dataclasses.field(default_factory=list)
+    # Event-clock times of each eval point; only a buffered asynchronous
+    # engine fills it (not ported yet), so it stays [].
+    event_s: list = dataclasses.field(default_factory=list)
 
 
 def resolve_scenario(scenario, transport_cfg, device=None):
@@ -242,24 +273,6 @@ def dropout_weighted_mean(tree, active):
     denom = torch.clamp_min(active.sum(), 1.0)
     return transport_lib.tree_unflatten(spec, [
         torch.tensordot(active, g, dims=([0], [0])) / denom for g in leaves])
-
-
-def link_telemetry(r: int, rnd, per_client_air, n_modes: int) -> dict:
-    """One ``FLResult.link`` record from a round's ``LinkRound`` and
-    airtime; numpy reductions as the reference's."""
-    def host(t):
-        return np.asarray(t.cpu() if isinstance(t, torch.Tensor) else t)
-
-    mode = host(rnd.mode)
-    return {
-        "round": r,
-        "mean_snr_db": float(np.mean(host(rnd.snr_db))),
-        "mean_est_db": float(np.mean(host(rnd.est_db))),
-        "mode_counts": np.bincount(mode, minlength=n_modes).tolist(),
-        "n_active": int(host(rnd.active).sum()),
-        "n_stragglers": int(host(rnd.straggler).sum()),
-        "airtime_s": float(host(per_client_air).sum()),
-    }
 
 
 def select_mode_cfgs(driver):
@@ -469,8 +482,9 @@ class RoundEngine:
     link adaptation), with or without the downlink broadcast.
 
     Args mirror the reference's ``RoundEngine``; ``device`` picks where the
-    model, payloads and both legs run (``None`` is the GPU). The arguments
-    of parts not ported yet must stay at their defaults.
+    model, payloads, both legs and the sketches run (``None`` is the GPU).
+    ``ledger``, ``phase_timers`` and ``sketches`` attach the observability
+    sinks (module docstring).
     """
 
     def __init__(self, algorithm, transport_cfg, client_x, client_y,
@@ -481,12 +495,6 @@ class RoundEngine:
                  downlink=None, compression=None,
                  fused_aggregate: bool = False, ledger=None,
                  phase_timers=None, sketches=None, device=None):
-        given = dict(ledger=ledger, phase_timers=phase_timers,
-                     sketches=sketches)
-        for name, value in given.items():
-            if value is not None:
-                raise NotImplementedError(
-                    f"{name}= is not ported yet: {_NOT_PORTED[name]}")
         if adaptive_dispatch not in ("bucketed", "select"):
             raise ValueError(
                 f"adaptive_dispatch must be bucketed|select, got "
@@ -498,6 +506,15 @@ class RoundEngine:
         self.num_clients = client_x.shape[0]
         self.fused_aggregate = bool(fused_aggregate)
         self.driver = resolve_scenario(scenario, transport_cfg, self.device)
+        # Observability sinks: pure observers of values the round computed.
+        self.ledger = ledger_lib.as_ledger(ledger)
+        self.phase_timers = timers_lib.resolve_timers(phase_timers)
+        self.sketcher = metrics_lib.resolve_sketches(
+            sketches, self.num_clients, self.device)
+        if self.sketcher is not None and self.driver is None:
+            raise ValueError(
+                "sketches= needs a scenario — the per-client SNR/mode "
+                "distributions being sketched come from the link driver")
         if self.driver is not None:
             self.select_cfgs = select_mode_cfgs(self.driver)
         # Kept pre-resolution: the downlink derives its own transport from
@@ -629,10 +646,10 @@ class RoundEngine:
             params, key, self.dl_cfg, self.num_clients, snr_db=dl_snr,
             device=dev)
 
-    def _downlink_record(self, dstats):
-        """The round's downlink telemetry fields (reference key order) and
-        the broadcast's airtime in seconds (each distinct mode transmitted
-        once; see ``latency.broadcast_airtime``)."""
+    def _downlink_record(self, rec, dstats) -> float:
+        """Set the round's downlink fields on ``rec`` (the reference's
+        ``downlink_*``) and return the broadcast's airtime in seconds (each
+        distinct mode transmitted once; see ``latency.broadcast_airtime``)."""
         if self.downlink.adaptive:
             air = latency_lib.round_airtime_adaptive(
                 dstats, self.timings, self.driver.mode_cfgs)
@@ -645,14 +662,13 @@ class RoundEngine:
                 # rescale, as on the uplink.
                 air = air * self.dl_air_scale
             total = latency_lib.broadcast_airtime(air)
-        fields = {"downlink_airtime_s": total,
-                  "downlink_ber": float(np.mean(
-                      dstats.ber.cpu().numpy()))}
+        rec.downlink_airtime_s = total
+        rec.downlink_ber = float(np.mean(dstats.ber.cpu().numpy()))
         if dstats.mode_idx is not None:
-            fields["downlink_mode_counts"] = np.bincount(
+            rec.downlink_mode_counts = np.bincount(
                 dstats.mode_idx.cpu().numpy(),
                 minlength=len(self.driver.mode_cfgs)).tolist()
-        return fields, total
+        return total
 
     # ------------------------------------------------------------- uplink
 
@@ -798,11 +814,12 @@ class RoundEngine:
         stats.mode_idx = torch.as_tensor(mode_np, device=acc.device)
         return dense_hat, stats, sent
 
-    def _compression_record(self, stats, rnd) -> dict:
-        """The round's compression telemetry: the mean kept fraction (per-mode
-        budgets through the round's mode vector), the active clients' bits
-        on air (float32 numpy reductions, as the reference), and the mean
-        per-client L2 norm of the EF residual (reduced on the device)."""
+    def _compression_record(self, rec, stats, rnd) -> None:
+        """Set the round's compression fields on ``rec``: the mean kept
+        fraction (per-mode budgets through the round's mode vector), the
+        active clients' bits on air (float32 numpy reductions, as the
+        reference), and the mean per-client L2 norm of the EF residual
+        (reduced on the device)."""
         if rnd is not None:
             k_vec = np.asarray(self._comp_ks)[np.asarray(rnd.mode.cpu())]
             active = rnd.active.cpu().numpy()
@@ -811,12 +828,90 @@ class RoundEngine:
             active = np.ones(self.num_clients, np.float32)
         boa = stats.bits_on_air.cpu().numpy().astype(np.float32)
         res = self._ef_residual
-        return {
-            "comp_ratio": float(k_vec.mean() / max(self._comp_dim, 1)),
-            "comp_bits_on_air": float((boa * active).sum()),
-            "comp_residual_norm": float(torch.sqrt(torch.mean(torch.sum(
-                res * res, dim=1)))),
+        rec.comp_ratio = float(k_vec.mean() / max(self._comp_dim, 1))
+        rec.comp_bits_on_air = float((boa * active).sum())
+        rec.comp_residual_norm = float(torch.sqrt(torch.mean(torch.sum(
+            res * res, dim=1))))
+
+    # ------------------------------------------------------- observability
+
+    @contextlib.contextmanager
+    def _scope(self, name: str):
+        """One phase-timer scope; with timers attached it closes after a
+        device synchronise, so on CUDA it times the device's work."""
+        with self.phase_timers.scope(name):
+            yield
+            if self.phase_timers is not timers_lib.NULL_TIMERS:
+                _sync(self.device)
+
+    def _manifest(self) -> dict:
+        """The manifest line of an attached ledger: the reference's keys
+        (config fingerprint, the run's shape, config summaries) and the
+        provenance block of this device."""
+        scen = None if self.driver is None else self.driver.scenario
+        man = {
+            "fingerprint": ledger_lib.config_fingerprint(
+                type(self.algo).__name__, self._raw_transport_cfg, scen,
+                self.downlink, self.compression, self.dispatch,
+                self.n_rounds, self.num_clients, self.seed),
+            "engine": "sync",
+            "algorithm": self.algo.name,
+            "n_rounds": self.n_rounds,
+            "num_clients": self.num_clients,
+            "seed": self.seed,
+            "eval_every": self.eval_every,
+            "dispatch": self.dispatch,
+            "transport_mode": self.transport_cfg.mode,
         }
+        if scen is not None:
+            from repro_torch.link import policy as policy_lib
+
+            man["scenario"] = scen.name
+            man["mode_names"] = policy_lib.mode_names(scen.policy)
+        if self.downlink is not None:
+            man["downlink"] = dataclasses.asdict(self.downlink)
+        if self.compression is not None:
+            man["compression"] = dataclasses.asdict(self.compression)
+        if self.fused_aggregate:
+            # Derived again, as the reference, so a layered run keeps the
+            # fingerprint it had before fused rounds existed.
+            man["fused_aggregate"] = True
+            man["fingerprint"] = ledger_lib.config_fingerprint(
+                man["fingerprint"], "fused_aggregate")
+        man["provenance"] = ledger_lib.provenance(self.device)
+        return man
+
+    def _finish_record(self, res, rec, stats) -> None:
+        """Close one round's record: the ``uplink_*`` aggregates (with a
+        ledger only: a host copy the link view does not need), then the
+        record, its link view and its ledger line."""
+        if self.ledger is not None:
+            for name, value in stats.round_summary().items():
+                setattr(rec, name, value)
+        res.records.append(rec)
+        if rec.has_link_fields():
+            res.link.append(rec.to_link_dict())
+        if self.ledger is not None:
+            self.ledger.write_round(rec)
+
+    def _finish_run(self, res) -> None:
+        """The ledger's summary line (with the phase-timer and run-level
+        sketch summaries when attached), then close the ledger."""
+        if self.ledger is None:
+            return
+        summary = {
+            "final_accuracy": res.final_accuracy,
+            "wall_s": res.wall_s,
+            "airtime_s": res.airtime_s[-1] if res.airtime_s else 0.0,
+            "n_evals": len(res.accuracy),
+        }
+        phases = self.phase_timers.summary()
+        if phases:
+            summary["phases"] = phases
+        if self.sketcher is not None:
+            summary["sketches"] = self.sketcher.summary()
+        self.ledger.write_summary(summary)
+        self.ledger.close()
 
     # ---------------------------------------------------------------- run
 
@@ -827,83 +922,99 @@ class RoundEngine:
         rng = np.random.default_rng(self.seed)
         res = FLResult([], [], [], 0.0, 0.0)
         t_start = time.perf_counter()
+        if self.ledger is not None:
+            self.ledger.write_manifest(self._manifest())
         cum_air = 0.0
         driver = self.driver
         for r in range(self.n_rounds):
             key, rk = prng.split(key)
-            xb, yb = algo.sample(rng, self.client_x, self.client_y, dev)
+            with self._scope("sample"):
+                xb, yb = algo.sample(rng, self.client_x, self.client_y, dev)
             phases, rnd, up_key = {}, None, rk
-            if driver is not None:
-                t_link = time.perf_counter()
-                k_link, up_key = prng.split(rk)
-                self.lstate, rnd = driver.round(
-                    self.lstate, self.prev_mode, self.prev_est, k_link)
-                self.prev_mode, self.prev_est = rnd.mode, rnd.est_db
-                phases["link"] = time.perf_counter() - t_link
-            dstats = None
-            t0 = time.perf_counter()
-            if self.downlink is not None:
-                with spans.collect(dev) as dparts:
-                    recv, dstats = self._broadcast(params, up_key, rnd)
-                _sync(dev)
-                t_dl = time.perf_counter()
-                phases.update(downlink=t_dl - t0,
-                              downlink_keys=dparts.get("keys", 0.0),
-                              downlink_kernel=dparts.get("kernel", 0.0))
-                t0 = t_dl
-            if self.downlink is None or self._dl_lossless:
-                payload = algo.payload(params, xb, yb)
-            else:
-                payload = algo.payload_from(recv, xb, yb)
-            _sync(dev)
-            t1 = time.perf_counter()
-            with spans.collect(dev) as parts:
-                if self.compression is not None:
-                    agg, stats = self._uplink_compressed(payload, up_key, rnd)
-                elif driver is None:
-                    agg, stats = self._uplink(payload, rk)
+            with self._scope("round"):
+                if driver is not None:
+                    t_link = time.perf_counter()
+                    k_link, up_key = prng.split(rk)
+                    self.lstate, rnd = driver.round(
+                        self.lstate, self.prev_mode, self.prev_est, k_link)
+                    self.prev_mode, self.prev_est = rnd.mode, rnd.est_db
+                    phases["link"] = time.perf_counter() - t_link
+                dstats = None
+                t0 = time.perf_counter()
+                if self.downlink is not None:
+                    with spans.collect(dev) as dparts:
+                        recv, dstats = self._broadcast(params, up_key, rnd)
+                    _sync(dev)
+                    t_dl = time.perf_counter()
+                    phases.update(downlink=t_dl - t0,
+                                  downlink_keys=dparts.get("keys", 0.0),
+                                  downlink_kernel=dparts.get("kernel", 0.0))
+                    t0 = t_dl
+                if self.downlink is None or self._dl_lossless:
+                    payload = algo.payload(params, xb, yb)
                 else:
-                    agg, stats = self._uplink_scenario(payload, up_key, rnd)
-            _sync(dev)
-            t2 = time.perf_counter()
-            params, aux = algo.apply(params, aux, agg)
-            _sync(dev)
-            t3 = time.perf_counter()
+                    payload = algo.payload_from(recv, xb, yb)
+                _sync(dev)
+                t1 = time.perf_counter()
+                with spans.collect(dev) as parts:
+                    if self.compression is not None:
+                        agg, stats = self._uplink_compressed(payload, up_key,
+                                                             rnd)
+                    elif driver is None:
+                        agg, stats = self._uplink(payload, rk)
+                    else:
+                        agg, stats = self._uplink_scenario(payload, up_key,
+                                                           rnd)
+                _sync(dev)
+                t2 = time.perf_counter()
+                params, aux = algo.apply(params, aux, agg)
+                _sync(dev)
+                t3 = time.perf_counter()
             phases.update(gradients=t1 - t0, uplink=t2 - t1,
                           uplink_keys=parts.get("keys", 0.0),
                           uplink_kernel=parts.get("kernel", 0.0),
                           apply=t3 - t2, eval=0.0)
-            # TDMA uplink: total airtime is the sum over clients.
-            if driver is not None:
-                per_client_air = driver.airtime(stats, rnd, self.timings)
-                rec = link_telemetry(r, rnd, per_client_air,
-                                     len(driver.mode_cfgs))
-            else:
-                per_client_air = latency_lib.round_airtime(
-                    stats, self.timings, self.transport_cfg.mode)
-                if self.ecrt_air_scale is not None:
-                    # Heterogeneous analytic ECRT: rescale each client's
-                    # airtime from the cohort-mean E[tx] to its own value.
-                    per_client_air = per_client_air * self.ecrt_air_scale
-                rec = {"round": r}
-            cum_air += float(torch.sum(per_client_air))
-            if self.compression is not None:
-                rec.update(self._compression_record(stats, rnd))
-            if dstats is not None:
-                fields, dl_air = self._downlink_record(dstats)
-                rec.update(fields)
-                cum_air += dl_air
-            if len(rec) > 1:
-                res.link.append(rec)
+            with self._scope("telemetry"):
+                # TDMA uplink: total airtime is the sum over clients.
+                if driver is not None:
+                    per_client_air = driver.airtime(stats, rnd, self.timings)
+                    rec = records_lib.scenario_round_record(
+                        r, rnd, per_client_air, len(driver.mode_cfgs))
+                else:
+                    per_client_air = latency_lib.round_airtime(
+                        stats, self.timings, self.transport_cfg.mode)
+                    if self.ecrt_air_scale is not None:
+                        # Heterogeneous analytic ECRT: rescale each client's
+                        # airtime from the cohort-mean E[tx] to its own.
+                        per_client_air = per_client_air * self.ecrt_air_scale
+                    rec = records_lib.RoundRecord(round=r)
+                cum_air += float(torch.sum(per_client_air))
+                if self.compression is not None:
+                    self._compression_record(rec, stats, rnd)
+                if dstats is not None:
+                    cum_air += self._downlink_record(rec, dstats)
+                if self.sketcher is not None:
+                    rec.sketches = self.sketcher.round_group(
+                        rk, snr_db=rnd.snr_db, est_db=rnd.est_db,
+                        ber=stats.client_metrics()["ber"],
+                        airtime_s=per_client_air, mode=rnd.mode,
+                        active=rnd.active,
+                        downlink_ber=None if dstats is None else dstats.ber)
+                self._finish_record(res, rec, stats)
             if r % self.eval_every == 0 or r == self.n_rounds - 1:
-                t4 = time.perf_counter()
-                acc = float(cnn.accuracy(params, self.test_x, self.test_y))
-                phases["eval"] = time.perf_counter() - t4
+                with self._scope("eval"):
+                    t4 = time.perf_counter()
+                    acc = float(cnn.accuracy(params, self.test_x,
+                                             self.test_y))
+                    phases["eval"] = time.perf_counter() - t4
                 res.rounds.append(r)
                 res.accuracy.append(acc)
                 res.airtime_s.append(cum_air)
+                if self.ledger is not None:
+                    self.ledger.write_eval(r, acc, cum_air)
             res.phase_s.append(phases)
         self.params, self.aux, self._key = params, aux, key
         res.wall_s = time.perf_counter() - t_start
         res.final_accuracy = res.accuracy[-1]
+        self._finish_run(res)
         return res

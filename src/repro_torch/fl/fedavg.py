@@ -59,9 +59,11 @@ def run_fedavg(
     schedule (``local_steps``, ``batch_per_step``) and ``scale_mode``.
     ``fused_aggregate=True`` needs ``scale_mode="none"`` (the ``max_abs``
     descale runs between demap and aggregate; ``ValueError`` otherwise).
-    ``device`` is where to run (``None`` is the GPU); ``compression``,
-    ``ledger``, ``phase_timers`` and ``sketches`` are not ported yet and
-    raise ``NotImplementedError`` naming the ROADMAP item (6, 8).
+    ``device`` is where to run (``None`` is the GPU). ``compression``
+    selects sparse uplinks; ``ledger`` (a path or a ``RunLedger``),
+    ``phase_timers`` (a ``PhaseTimers``) and ``sketches`` (``True``, a
+    layout dict or a ``RoundSketcher``; needs a scenario) attach the
+    observability sinks, which change no number of the run.
     """
     algo = engine_lib.FedAvg(cfg, local_steps=local_steps,
                              batch_per_step=batch_per_step,

@@ -72,20 +72,34 @@ def run_fl(
       timings: PHY timing model for airtime pricing.
       scenario: ``None`` for the paper's static single-mode uplink, else a
         scenario name, ``Scenario`` or ``ScenarioDriver``: per-round link
-        adaptation, with telemetry in ``FLResult.link``. A scenario that
-        brings compression raises ``NotImplementedError``.
+        adaptation, with telemetry in ``FLResult.records`` and
+        ``FLResult.link``. A scenario that brings compression (or a
+        downlink) runs it.
       adaptive_dispatch: ``"bucketed"`` (one batch per mode bucket, one
         K1/K2 launch per uncoded bucket on ``use_kernel`` tables) or
         ``"select"`` (kernel rows cleared; layered PHY).
       downlink: ``None`` (error-free downlink) or a ``DownlinkConfig``:
         the broadcast leg at the top of each round; ``adaptive=True``
         needs a scenario. Overrides a scenario's own downlink.
+      compression: ``None`` (dense uplinks) or a ``CompressionConfig``:
+        sparse uplinks with error feedback and a protected index header.
+        Overrides a scenario's own compression.
       fused_aggregate: fold the PS aggregation into the uplink (K2);
         scenario runs need the bucketed dispatch for it.
+      ledger: ``None``, a path or a ``repro_torch.obs.RunLedger``: the
+        run's JSONL ledger in the reference's format (manifest, one line a
+        round and an eval, summary), readable by ``tools/report.py``.
+      phase_timers: ``None`` or a ``repro_torch.obs.PhaseTimers``: the
+        ``sample`` / ``round`` / ``telemetry`` / ``eval`` scopes, each
+        closed after a device synchronise on CUDA.
+      sketches: ``None``, ``True``, a layout dict or a
+        ``repro_torch.obs.RoundSketcher``: per-round per-client
+        distribution sketches in ``FLResult.records`` (and the ledger);
+        needs a scenario (``ValueError`` otherwise).
       device: where to run; ``None`` is the GPU.
-      compression / ledger / phase_timers / sketches: not ported yet;
-        anything but ``None`` raises ``NotImplementedError`` naming the
-        ROADMAP item (6, 8).
+
+    The three sinks are observers: the run's numbers are bit for bit those
+    of the same run without them.
 
     Returns:
       :class:`~repro_torch.fl.engine.FLResult`.

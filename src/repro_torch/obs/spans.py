@@ -7,8 +7,10 @@ on exit and adds its host-clock seconds to the scope's dict under its
 name, so the uplink's time splits into its parts on the rounds it
 describes. Outside one, :func:`span` only reads a context variable.
 
-The reference's per-phase timers (``repro.obs.timers``) are a separate,
-not yet ported item; this module has no counterpart there.
+This module has no counterpart in the reference. The engine's coarser
+phase scopes (``sample``, ``round``, ``telemetry``, ``eval``) are
+:mod:`repro_torch.obs.timers`, the reference's ``PhaseTimers``; spans
+split the uplink and the downlink inside a round (``FLResult.phase_s``).
 """
 
 from __future__ import annotations

@@ -714,3 +714,90 @@ def test_compressed_round_launches_k1_once(cuda_device):
         r["comp_bits_on_air"] for r in b.link] == [4 * 20540.0] * 2
     assert all(abs(p - q) <= 2 / 16 + 1e-6
                for p, q in zip(a.accuracy, b.accuracy))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True])
+def test_sinks_are_neutral_on_card(cuda_device, fused, tmp_path):
+    """A 6-client ``vehicular`` bucketed run on the card with a ledger,
+    phase timers and sketches equals the run without them bit for bit:
+    params, accuracy, airtime, link and K1/K2 launches; the ledger
+    validates and its provenance names the card."""
+    import dataclasses
+
+    from repro_torch.configs.mnist_cnn import config
+    from repro_torch.fl import engine as TE
+    from repro_torch.link import scenario as TS
+    from repro_torch.obs import PhaseTimers
+    from repro_torch.obs import ledger as TL
+
+    rng = np.random.default_rng(0)
+    cx = rng.uniform(0, 1, (6, 16, 28, 28)).astype(np.float32)
+    cy = rng.integers(0, 10, (6, 16)).astype(np.int32)
+    cfg = TT.TransportConfig(mode="approx", use_kernel=True,
+                             channel=TCH.ChannelConfig(snr_db=10.0))
+    scen = dataclasses.replace(TS.get_scenario("vehicular"),
+                               ecrt_expected_tx=2.0)
+    path = str(tmp_path / "card.jsonl")
+    runs = []
+    for sinks in (dict(ledger=path, phase_timers=PhaseTimers(),
+                       sketches=True), {}):
+        TAC.reset_launch_counts()
+        eng = TE.RoundEngine(TE.FedSGD(config(), batch_per_round=8), cfg,
+                             cx, cy, cx[0], cy[0], n_rounds=3, eval_every=1,
+                             scenario=scen, fused_aggregate=fused, **sinks)
+        runs.append((eng, eng.run(), TAC.launch_counts()))
+    (ea, a, la), (eb, b, lb) = runs
+    assert la == lb and la["k2" if fused else "k1"] > 0
+    for k in ea.params:
+        assert torch.equal(ea.params[k], eb.params[k]), k
+    assert (a.accuracy, a.airtime_s, a.link) == (b.accuracy, b.airtime_s,
+                                                 b.link)
+    for rec in a.records:
+        assert rec.sketches["ber"]["total"] == rec.n_active
+        assert rec.sketches["snr_db"]["total"] == 6
+    assert TL.validate_ledger(path) == []
+    assert TL.read_ledger(path).link == a.link
+    prov = TL.read_ledger(path).manifest["provenance"]
+    assert prov["backend"] == "cuda"
+    assert prov["device"] == torch.cuda.get_device_name(0)
+
+
+@pytest.mark.cuda
+def test_round_group_card_equals_cpu(cuda_device):
+    """The sketch reduction on the card equals the CPU's on the same
+    per-client arrays and round keys, over rounds that carry the mode
+    dwell: counts, exemplars, NaN / +-inf / +-0 / edge values and ties."""
+    import json
+
+    from repro_torch.core import prng as P
+    from repro_torch.obs import metrics as TM
+
+    n, r = 100, np.random.default_rng(4)
+    edges = TM.DEFAULT_LAYOUTS["snr_db"].edges().astype(np.float32)
+    card = TM.RoundSketcher(n, exemplar_k=6, device=cuda_device)
+    host = TM.RoundSketcher(n, exemplar_k=6, device="cpu")
+    mode = r.integers(0, 4, n)
+    for rnd in range(4):
+        snr = r.uniform(-25, 65, n).astype(np.float32)
+        snr[:8] = [np.nan, np.inf, -np.inf, 0.0, -0.0, edges[3], edges[20],
+                   edges[-1]]
+        ber = (10.0 ** r.uniform(-10, 0.3, n)).astype(np.float32)
+        ber[r.random(n) < 0.4] = 0.0
+        ber[8:12] = [np.nan, 1.0, 0.5, 0.5]
+        mode = np.where(r.random(n) < 0.3, r.integers(0, 4, n), mode)
+        arrs = dict(snr_db=snr, est_db=snr + 0.5, ber=ber,
+                    airtime_s=(10.0 ** r.uniform(-8, 3.5, n)).astype(
+                        np.float32),
+                    mode=mode.astype(np.int32),
+                    active=(r.random(n) > 0.2).astype(np.float32),
+                    downlink_ber=ber[::-1].copy())
+        key = P.fold_in(P.PRNGKey(5), rnd)
+        got = card.round_group(
+            key.to(cuda_device),
+            **{k: torch.from_numpy(v).to(cuda_device)
+               for k, v in arrs.items()})
+        want = host.round_group(key, **{k: torch.from_numpy(v)
+                                        for k, v in arrs.items()})
+        assert json.dumps(got) == json.dumps(want), rnd
+    assert card.summary() == host.summary()

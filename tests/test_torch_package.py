@@ -5,12 +5,14 @@
   AST scan): all three run on a GPU machine without JAX.
 * Entry points run on the GPU unless asked for the CPU: without a GPU
   they raise, with ``device="cpu"`` they run.
-* Engine arguments not ported yet (``ledger=``, ``phase_timers=``,
-  ``sketches=``) raise ``NotImplementedError`` naming ROADMAP item 8; an
-  unknown transport mode, dispatch, or ``fused_aggregate`` with the
-  select dispatch raises ``ValueError``. The downlink, FedAvg,
-  ``compression=`` and the ``iot-lowrate`` preset (which brings its own
-  compression) run.
+* Every engine argument of the reference is ported: ``scenario=``,
+  ``compression=``, ``ledger=``, ``phase_timers=`` and ``sketches=`` run
+  (a ledger that validates, the four timer scopes, sketches on
+  ``iot-lowrate``; ``sketches=`` on a driverless run raises
+  ``ValueError``, as in the reference); an unknown transport mode,
+  dispatch, or ``fused_aggregate`` with the select dispatch raises
+  ``ValueError``. The downlink, FedAvg and the ``iot-lowrate`` preset
+  (which brings its own compression) run.
 """
 
 import ast
@@ -215,11 +217,16 @@ def test_unknown_mode_raises():
 
 @pytest.mark.parametrize("arg", ["scenario", "compression", "ledger",
                                  "phase_timers", "sketches"])
-def test_unported_engine_arguments_raise(arg):
-    """``ledger=``, ``phase_timers=`` and ``sketches=`` raise, naming item
-    8. ``scenario=`` and ``compression=`` are ported: a scenario that brings
-    compression and an explicit ``CompressionConfig`` run a round and
-    report the compression fields."""
+def test_unported_engine_arguments_raise(arg, tmp_path):
+    """Each engine argument that raised until its item was ported now runs,
+    under ``run_fl`` and ``run_fedavg``: a scenario that brings compression
+    and an explicit ``CompressionConfig`` report the compression fields; a
+    ledger validates and reads back to ``FLResult.link``; phase timers hold
+    the four scopes; sketches on a driverless run raise ``ValueError`` (as
+    in the reference) and on ``iot-lowrate`` fill each round's group."""
+    from repro_torch.obs import PhaseTimers
+    from repro_torch.obs import ledger as TL
+
     for run in (run_fl, run_fedavg):
         if arg in ("scenario", "compression"):
             value = ("iot-lowrate" if arg == "scenario"
@@ -227,10 +234,27 @@ def test_unported_engine_arguments_raise(arg):
             res = run(config(), _approx(), *_world(), n_rounds=1,
                       device="cpu", **{arg: value})
             assert res.link[0]["comp_bits_on_air"] > 0
-            continue
-        with pytest.raises(NotImplementedError, match="ROADMAP.*item 8"):
+        elif arg == "ledger":
+            path = str(tmp_path / f"{run.__name__}.jsonl")
+            res = run(config(), _approx(), *_world(), n_rounds=1,
+                      device="cpu", scenario="vehicular", ledger=path)
+            assert TL.validate_ledger(path) == []
+            assert TL.read_ledger(path).link == res.link
+        elif arg == "phase_timers":
+            timers = PhaseTimers()
             run(config(), _approx(), *_world(), n_rounds=1, device="cpu",
-                **{arg: object()})
+                phase_timers=timers)
+            assert set(timers.summary()) == {"sample", "round", "telemetry",
+                                             "eval"}
+        else:
+            with pytest.raises(ValueError, match="needs a scenario"):
+                run(config(), _approx(), *_world(), n_rounds=1,
+                    device="cpu", sketches=True)
+            res = run(config(), _approx(), *_world(), n_rounds=1,
+                      device="cpu", scenario="iot-lowrate", sketches=True)
+            group = res.records[0].sketches
+            assert group["snr_db"]["total"] == 2
+            assert group["ber"]["total"] == res.link[0]["n_active"]
 
 
 @pytest.mark.parametrize("name,item", [("iot-lowrate", "item 6")])

@@ -17,7 +17,9 @@ preset) against the reference's.
   equals the select round bit for bit (one budget, an explicit ``k``);
   ``run_fl`` / ``run_fedavg`` equal the engine they wrap.
 * The reference's refusals: ``fused_aggregate=True`` with compression,
-  and ``compress_ratios`` under the select dispatch, raise ``ValueError``.
+  ``compress_ratios`` under the select dispatch, and ``sketches=`` without
+  a scenario raise ``ValueError``; sketches on a compressed ``iot-lowrate``
+  round observe its active clients.
 """
 
 import dataclasses
@@ -262,7 +264,16 @@ def test_compression_refusals(world6):
             eng.RoundEngine(eng.FedSGD(config()), cfg, cx, cy, ti, tl,
                             n_rounds=1, scenario=scen,
                             adaptive_dispatch="select", **kw)
-    for name in ("ledger", "phase_timers", "sketches"):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            TE.RoundEngine(TE.FedSGD(t_config()), tc, cx, cy, ti, tl,
-                           n_rounds=1, device="cpu", **{name: object()})
+    # Sketches need a scenario in both packages; on a compressed scenario
+    # run they observe every round.
+    for eng, cfg, config in ((JEN, jc, j_config), (TE, tc, t_config)):
+        kw = {} if eng is JEN else dict(device="cpu")
+        with pytest.raises(ValueError, match="needs a scenario"):
+            eng.RoundEngine(eng.FedSGD(config()), cfg, cx, cy, ti, tl,
+                            n_rounds=1, sketches=True, **kw)
+    scen = dataclasses.replace(TS.get_scenario("iot-lowrate"),
+                               ecrt_expected_tx=2.0)
+    res = TE.RoundEngine(TE.FedSGD(t_config(), batch_per_round=4), tc, cx,
+                         cy, ti, tl, n_rounds=1, device="cpu",
+                         scenario=scen, sketches=True).run()
+    assert res.records[0].sketches["ber"]["total"] == res.link[0]["n_active"]
