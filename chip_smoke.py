@@ -7,7 +7,8 @@
 Drives the port (``src/repro_torch``) through its main path — the paper's
 FedSGD rounds over the approximate uplink, then the link-adaptation,
 FedAvg, downlink and sparse-uplink rounds built on it, with the
-observability sinks attached — and holds both
+observability sinks attached, and the buffered asynchronous engine's
+waves — and holds both
 CUDA kernels against their plain PyTorch versions. Phases, each of which
 fails the run
 (non-zero exit) when it fails:
@@ -128,6 +129,27 @@ fails the run
    per run: the timers' report, the ``telemetry`` scope's first and
    steady median time, and the wall and round times with and without the
    sinks.
+5h. Buffered asynchronous rounds at full width (the same world and base,
+   ``AsyncRoundEngine``): (a) degenerate runs (``buffer_k`` the cohort,
+   simultaneous arrivals, constant weights), driverless layered (K1) and
+   fused (K2) and ``vehicular`` bucketed layered and fused, each equal
+   bit for bit to its sync twin (params, accuracy, airtime, link,
+   launches a round or wave) and the twin to phase 5's / 5d's run; (b)
+   ``metro-rush`` (its compute and arrival models) with ``buffer_k=25``,
+   polynomial staleness (alpha 0.5), 8 aggregations, a ledger, a trace,
+   timers and sketches, and with ``buffer_k=100``, 3 aggregations: per
+   wave K1 launches = the non-empty uncoded buckets over all 100 rows
+   (non-members ride as mask fodder); the ledger validates with its
+   event stream and eval stamps, the trace exports, the staleness
+   histogram is non-empty; event seconds per aggregation of the two
+   arms; (c) ``global-churn`` (churn, idle gaps) with ``buffer_k=25``,
+   inverse staleness and top-k 0.02: one K1 value-leg batch per uncoded
+   bucket a wave, and every absent client's EF residual row unchanged by
+   the wave, bit for bit. ``event_s`` one non-decreasing stamp per eval
+   everywhere. Per wave: members, modes, launches, phase times; each
+   run's peak memory. Then a 6-client ``metro-rush`` buffered run on the
+   card against the CPU: the same event stream, ``event_s`` and link
+   records, accuracy within 2 test images.
 6. Times at the main-path shape (C=100, N=22,528, QPSK, f32; K0 at C=1):
    kernel and plain version with CUDA events (median of single launches
    after a warm-up), each kernel's bound from bytes and operations, the
@@ -139,8 +161,8 @@ fails the run
    round 0's ``iot-lowrate`` uncoded buckets), one padded tile a client,
    beside the bound of the ``k`` words.
 7. The result: a JSON line of the kernels (``launches`` counts phase 5's,
-   5e's, 5f's and 5g's runs), ``nvidia-smi``'s line, and as the last line
-   ``{"ok": true, "device": {...}}``.
+   5e's, 5f's, 5g's and 5h's runs), ``nvidia-smi``'s line, and as the
+   last line ``{"ok": true, "device": {...}}``.
 
 Needs one GPU, no network, and finishes in a few minutes. Exits non-zero,
 printing no result, without a GPU or outside a checkout of the repository.
@@ -931,36 +953,53 @@ def _round0_uplink_key(seed: int):
     return prng.split(sub)[1]
 
 
-def _scenario_run(torch, device, cx, cy, ti, tl, scen, rounds, dispatch,
-                  fused, capture=None, algo=None, downlink=None,
-                  compression=None, **sinks):
-    """One run through ``RoundEngine`` (FedSGD unless ``algo`` is given;
-    driverless with ``scen=None``; ``sinks`` are the observability
-    arguments): launch counts per round (read after each round's uplink),
-    the result, the peak memory and the engine."""
-    from repro_torch.configs.mnist_cnn import config
+def _base_cfg():
+    """The runs' uplink: approx QPSK at 10 dB on the kernel path."""
     from repro_torch.core import channel, transport
-    from repro_torch.fl import engine
-    from repro_torch.kernels import approx_channel as ac
 
-    tcfg = transport.TransportConfig(
+    return transport.TransportConfig(
         mode="approx", modulation="qpsk",
         channel=channel.ChannelConfig(snr_db=10.0), use_kernel=True)
+
+
+def _scenario_run(torch, device, cx, cy, ti, tl, scen, rounds, dispatch,
+                  fused, capture=None, algo=None, downlink=None,
+                  compression=None, buffered=None, on_wave=None, **sinks):
+    """One run through ``RoundEngine`` (FedSGD unless ``algo`` is given;
+    driverless with ``scen=None``; ``sinks`` are the observability
+    arguments), or through ``AsyncRoundEngine`` with ``buffered`` its
+    arguments (``buffer_k``, ``staleness``, ...): launch counts per round or
+    wave (read after each round body, which ends with the uplink), the
+    result, the peak memory and the engine. ``on_wave(engine, member,
+    residual before)`` runs after each round body."""
+    from repro_torch.configs.mnist_cnn import config
+    from repro_torch.fl import async_engine, engine
+    from repro_torch.kernels import approx_channel as ac
+
+    tcfg = _base_cfg()
     if algo is None:
         algo = engine.FedSGD(config(), batch_per_round=32)
-    eng = engine.RoundEngine(algo, tcfg, cx, cy, ti, tl, n_rounds=rounds,
-                             seed=0, eval_every=1, scenario=scen,
-                             adaptive_dispatch=dispatch,
-                             fused_aggregate=fused, downlink=downlink,
-                             compression=compression, device=device, **sinks)
+    kw = dict(n_rounds=rounds, seed=0, eval_every=1, scenario=scen,
+              adaptive_dispatch=dispatch, fused_aggregate=fused,
+              downlink=downlink, compression=compression, device=device,
+              **sinks)
+    eng = (engine.RoundEngine(algo, tcfg, cx, cy, ti, tl, **kw)
+           if buffered is None else async_engine.AsyncRoundEngine(
+               algo, tcfg, cx, cy, ti, tl, **buffered, **kw))
     per_round = []
-    apply = algo.apply
+    body = eng._round_body
 
-    def counted_apply(*args):  # one call a round, after its uplink
+    def counted_body(*args, **kw):  # one call a round or wave
+        before = (None if eng._ef_residual is None
+                  else eng._ef_residual.clone())
+        out = body(*args, **kw)
         per_round.append(ac.launch_counts())
-        return apply(*args)
+        if on_wave is not None:
+            member = args[4] if len(args) > 4 else kw.get("member")
+            on_wave(eng, member, before)
+        return out
 
-    algo.apply = counted_apply
+    eng._round_body = counted_body
     if capture is not None:
         link_round = eng.driver.round
 
@@ -1971,6 +2010,270 @@ def phase_obs(torch, device, small: bool, main_runs: dict,
     return launches
 
 
+def _same_run(torch, label, a, b, da, db, ea=None, eb=None) -> None:
+    """Two runs bit for bit: accuracy, airtime, link, launches a round
+    (``None`` skips them) and, given both engines, the final params."""
+    _check((a.accuracy, a.airtime_s, a.link) == (b.accuracy, b.airtime_s,
+                                                  b.link)
+           and (da is None or db is None or da == db),
+           f"{label}: accuracy, airtime, link or launches a round differ")
+    if ea is not None:
+        for k in ea.params:
+            _check(torch.equal(ea.params[k], eb.params[k]),
+                   f"{label}: {k} differs")
+
+
+def _check_event_s(label, res) -> None:
+    _check(len(res.event_s) == len(res.rounds) == len(res.accuracy)
+           and all(t2 >= t1 for t1, t2 in zip(res.event_s, res.event_s[1:])),
+           f"{label}: event_s {res.event_s} is not one non-decreasing stamp "
+           f"per eval")
+
+
+def _log_waves(label, res, deltas, members) -> None:
+    for w, (d, ph) in enumerate(zip(deltas, res.phase_s)):
+        link = res.link[w] if res.link else {}
+        comp = ""
+        if "comp_ratio" in link:
+            comp = (f"comp_bits_on_air {link['comp_bits_on_air']:.0f}, "
+                    f"comp_residual_norm {link['comp_residual_norm']:.6g}, ")
+        _log(f"    {label} wave {w}: {members[w]:.0f} members, modes "
+             f"{link.get('mode_counts')}, active {link.get('n_active')}, "
+             f"{comp}launches {d}; " + ", ".join(
+                 f"{k} {v * 1e3:.3f} ms" for k, v in ph.items()))
+
+
+def _buffered_card_vs_cpu(torch, device) -> None:
+    """A 6-client ``metro-rush`` buffered run on the card against the CPU:
+    the event schedule is the host's, so it is the same."""
+    from repro_torch.link import scenario as scenario_lib
+    from repro_torch.obs import trace as trace_lib
+
+    cx, cy, ti, tl = _world(6, small=True)
+    scen = dataclasses.replace(scenario_lib.get_scenario("metro-rush"),
+                               ecrt_expected_tx=2.0)
+    runs = []
+    for dev in (device, torch.device("cpu")):
+        tr = trace_lib.TraceRecorder()
+        res = _scenario_run(torch, dev, cx, cy, ti, tl, scen, 4, "bucketed",
+                            False, buffered=dict(buffer_k=2, trace=tr,
+                                                 staleness="polynomial"))[0]
+        runs.append((res, [(e.kind, e.wave, e.client, e.version)
+                           for e in tr.events]))
+    (a, ea), (b, eb) = runs
+    tol = 2 / len(tl) + 1e-6
+    _check(ea == eb, "6-client metro-rush: the event stream differs between "
+                     "the card and the CPU")
+    _check(all(abs(p - q) <= 1e-6 * q for p, q in zip(a.event_s, b.event_s))
+           and [(r["mode_counts"], r["n_active"]) for r in a.link]
+           == [(r["mode_counts"], r["n_active"]) for r in b.link],
+           "6-client metro-rush: event_s or link records differ between the "
+           "card and the CPU")
+    _check(all(abs(p - q) <= tol for p, q in zip(a.accuracy, b.accuracy)),
+           f"6-client metro-rush: GPU {a.accuracy} vs CPU {b.accuracy}")
+    _log(f"  6-client metro-rush buffer_k=2, card == CPU: {len(ea)} events, "
+         f"event_s {a.event_s}; accuracy GPU {a.accuracy} vs CPU "
+         f"{b.accuracy}")
+
+
+def phase_buffered(torch, device, small: bool, main_runs: dict,
+                   link_runs: dict) -> dict:
+    """Phase 5h: buffered asynchronous rounds at full width. Returns the
+    K1/K2 launches of its runs (main-path launches)."""
+    from repro_torch.compress import sparsify
+    from repro_torch.link import scenario as scenario_lib
+    from repro_torch.obs import PhaseTimers
+    from repro_torch.obs import ledger as ledger_lib
+
+    _log("== phase 5h: buffered asynchronous rounds at full width")
+    t_phase = time.perf_counter()
+    on_card = device.type == "cuda"
+    out = ROOT / "build" / "chip_smoke_async"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    launches = {"k0": 0, "k1": 0, "k2": 0}
+
+    def add(*totals):
+        for t in totals:
+            for k in launches:
+                launches[k] += t[k]
+
+    # (a) Degenerate runs (buffer_k = the cohort, simultaneous arrivals,
+    # constant weights) against their sync twins and phase 5's / 5d's runs.
+    n_main, n_link = (4, 8) if small else (100, 100)
+    world = _world(n_main, small)
+    for fused, kernel in ((False, "k1"), (True, "k2")):
+        label = f"(a) driverless FedSGD, {'fused' if fused else 'layered'}"
+        s, sd, st, _, se = _scenario_run(torch, device, *world, None, 3,
+                                         "bucketed", fused)
+        b, bd, bt, peak, be = _scenario_run(torch, device, *world, None, 3,
+                                            "bucketed", fused, buffered={})
+        add(st, bt)
+        ref = main_runs[fused]
+        _same_run(torch, f"{label}, sync twin vs phase 5", s, ref, None,
+                  None)
+        _same_run(torch, f"{label}, buffered vs sync", b, s, bd, sd, be, se)
+        want = {"k0": 0, "k1": 0, "k2": 0}
+        want[kernel] = 1 if on_card else 0
+        _check(all(d == want for d in bd),
+               f"{label}: launches {bd}, expected {want} a wave")
+        _check_event_s(label, b)
+        _log(f"  {label}: buffered == sync == phase 5, launches a wave "
+             f"{bd}, event_s {b.event_s}, peak memory {peak}")
+        _log_waves(label, b, bd, [n_main] * len(bd))
+    world = _world(n_link, small)
+    base = _base_cfg()
+    drivers = {name: scenario_lib.ScenarioDriver(
+        scenario_lib.get_scenario(name), base, device=device)
+        for name in ("vehicular", "metro-rush", "global-churn")}
+    for label, fused in (("bucketed layered (K1)", False),
+                         ("bucketed fused (K2)", True)):
+        s, sd, st, _, se = _scenario_run(torch, device, *world,
+                                         drivers["vehicular"], 3, "bucketed",
+                                         fused)
+        b, bd, bt, peak, be = _scenario_run(torch, device, *world,
+                                            drivers["vehicular"], 3,
+                                            "bucketed", fused, buffered={})
+        add(st, bt)
+        ref_res, ref_deltas = link_runs[label]
+        _same_run(torch, f"(a) vehicular {label}, sync twin vs phase 5d", s,
+                  ref_res, sd, ref_deltas)
+        _same_run(torch, f"(a) vehicular {label}, buffered vs sync", b, s,
+                  bd, sd, be, se)
+        _check_event_s(f"(a) vehicular {label}", b)
+        _log(f"  (a) vehicular {label}: buffered == sync == phase 5d, "
+             f"launches a wave {bd}, event_s {b.event_s}, "
+             f"peak memory {peak}")
+        _log_waves(f"(a) vehicular {label}", b, bd, [n_link] * len(bd))
+
+    def check_waves(label, res, deltas, eng):
+        for w, (link, d) in enumerate(zip(res.link, deltas)):
+            want = _uplink_buckets(eng, link) if on_card else 0
+            _check(d == {"k0": 0, "k1": want, "k2": 0},
+                   f"{label} wave {w}: launches {d}, expected {want} K1 "
+                   f"(the uncoded buckets over all rows)")
+        _check(all(math.isfinite(a) for a in res.accuracy),
+               f"{label}: accuracy is not finite")
+        _check_event_s(label, res)
+
+    def wave_members(path):
+        return [e.value for e in ledger_lib.read_ledger(path).events
+                if e.kind == "wave"]
+
+    # (b) metro-rush, the async study's two arms: buffer_k = 25 with
+    # polynomial staleness (ledger, trace, timers, sketches), and the
+    # cohort-sized buffer.
+    k25 = 2 if small else 25
+    rows = []
+    for arm, rounds, bk in (("buffer_k=%d" % k25, 8, k25),
+                            ("buffer_k=%d" % n_link, 3, None)):
+        label = f"(b) metro-rush {arm}"
+        stem = re.sub(r"[^a-z0-9]+", "-", label.lower()).strip("-")
+        lpath, tpath = out / f"{stem}.jsonl", out / f"{stem}.trace.json"
+        timers = PhaseTimers()
+        t0 = time.perf_counter()
+        res, deltas, total, peak, eng = _scenario_run(
+            torch, device, *world, drivers["metro-rush"], rounds,
+            "bucketed", False, ledger=str(lpath), phase_timers=timers,
+            sketches=True, buffered=dict(buffer_k=bk, staleness="polynomial",
+                                         staleness_alpha=0.5,
+                                         trace=str(tpath)))
+        secs = time.perf_counter() - t0
+        add(total)
+        check_waves(label, res, deltas, eng)
+        problems = ledger_lib.validate_ledger(str(lpath))
+        _check(problems == [], f"{label}: ledger does not validate: "
+                               f"{problems}")
+        data = ledger_lib.read_ledger(str(lpath))
+        kinds = {e.kind for e in data.events}
+        _check({"wave", "compute", "uplink", "arrival", "aggregate",
+                "buffer"} <= kinds
+               and [e["event_s"] for e in data.evals] == res.event_s,
+               f"{label}: ledger events {sorted(kinds)} or eval stamps "
+               f"incomplete")
+        with open(tpath) as f:
+            trace = json.load(f)
+        _check(len(trace["traceEvents"]) > 0, f"{label}: empty trace")
+        stale = eng.sketcher.run["staleness"]
+        _check(stale.total > 0, f"{label}: the staleness histogram is empty")
+        per_agg = [t2 - t1 for t1, t2 in zip([0.0] + res.event_s,
+                                             res.event_s)]
+        slots = [(i, c) for i, c in enumerate(stale.to_dict()["counts"])
+                 if c]
+        members = wave_members(str(lpath))
+        _log(f"  {label}: {len(deltas)} waves, {len(res.rounds)} "
+             f"aggregations in {secs:.2f} s, launches {total}, accuracy "
+             f"{res.accuracy}, event_s {res.event_s}, event seconds per "
+             f"aggregation {per_agg}, staleness observed "
+             f"{stale.total} (non-zero slots {slots}), "
+             f"peak memory {peak}; ledger {len(data.events)} events, trace "
+             f"{len(trace['traceEvents'])} entries")
+        _log("    " + timers.report().replace("\n", "\n    "))
+        # The event loop's own host work: the run's wall time outside the
+        # timer scopes and the applies (draws, heap, records, events).
+        scoped = sum(v["total_s"] for v in timers.summary().values())
+        applied = sum(ph.get("apply", 0.0) for ph in res.phase_s)
+        _log(f"    event loop outside the scopes and applies: "
+             f"{(res.wall_s - scoped - applied) * 1e3 / len(deltas):.3f} ms "
+             f"a wave (wall {res.wall_s * 1e3:.1f} ms, scopes "
+             f"{scoped * 1e3:.1f} ms, applies {applied * 1e3:.1f} ms)")
+        _log_waves(label, res, deltas, members)
+        rows.append((arm, per_agg))
+    _log("  metro-rush event seconds per aggregation: " + "; ".join(
+        f"{arm}: mean {statistics.fmean(p):.4f} s over {len(p)}"
+        for arm, p in rows))
+    # The event layer's draws alone, on the host where the engine makes
+    # them (the wave key stays there): medians of 20.
+    from repro_torch.core import prng
+    from repro_torch.link import dynamics
+
+    scen, key = drivers["metro-rush"].scenario, prng.PRNGKey(5)
+    clock = Clock(torch, device)
+    joined = torch.ones(n_link)
+    churn = drivers["global-churn"].scenario.arrival
+    _log(f"  event-layer draws on the host, {n_link} clients: " + ", ".join(
+        f"{name} {clock.host_median_ms(fn, 20):.3f} ms" for name, fn in (
+            ("compute_times", lambda: dynamics.compute_times(
+                key, scen.compute, n_link)),
+            ("idle_gaps", lambda: dynamics.idle_gaps(key, n_link,
+                                                     scen.arrival)),
+            ("churn_step", lambda: dynamics.churn_step(key, joined,
+                                                       churn)))))
+
+    # (c) global-churn, buffer_k = 25, inverse staleness, top-k 0.02: the
+    # value leg one K1 batch per uncoded bucket; absent clients keep their
+    # EF residual rows bit for bit.
+    label = f"(c) global-churn buffer_k={k25} top-k"
+    kept = []
+
+    def residual_kept(eng, member, before):
+        absent = member.to(before.device) == 0
+        kept.append(int(absent.sum()))
+        _check(torch.equal(eng._ef_residual[absent], before[absent]),
+               f"{label}: an absent client's EF residual moved")
+
+    t0 = time.perf_counter()
+    res, deltas, total, peak, eng = _scenario_run(
+        torch, device, *world, drivers["global-churn"], 6, "bucketed", False,
+        compression=sparsify.CompressionConfig(), on_wave=residual_kept,
+        ledger=str(out / "global-churn.jsonl"),
+        buffered=dict(buffer_k=k25, staleness="inverse"))
+    add(total)
+    check_waves(label, res, deltas, eng)
+    _check(sum(kept) > 0, f"{label}: every wave held the whole cohort")
+    _log(f"  {label}: {len(deltas)} waves, {len(res.rounds)} aggregations "
+         f"in {time.perf_counter() - t0:.2f} s, launches {total}, accuracy "
+         f"{res.accuracy}, event_s {res.event_s}, absent clients a wave "
+         f"{kept} (residuals kept bit for bit), peak memory {peak}")
+    _log_waves(label, res, deltas,
+               wave_members(str(out / "global-churn.jsonl")))
+    if on_card:
+        _buffered_card_vs_cpu(torch, device)
+    _log(f"  phase 5h: {time.perf_counter() - t_phase:.1f} s, launches "
+         f"{launches}")
+    return launches
+
+
 def phase_times(torch, device, small: bool, launches: dict, sass: dict,
                 mhz, buckets=(), sparse_shapes=()) -> list:
     from repro_torch.core import aggregation, prng, transport
@@ -2160,6 +2463,9 @@ def main(argv=None) -> int:
             launches[k] += v
         for k, v in phase_obs(torch, device, small, main_runs,
                               link_runs).items():
+            launches[k] += v
+        for k, v in phase_buffered(torch, device, small, main_runs,
+                                   link_runs).items():
             launches[k] += v
         rows = phase_times(torch, device, small, launches, sass, mhz,
                            buckets, sparse_shapes)

@@ -12,10 +12,8 @@ per-client E[tx] for heterogeneous SNR. ECRT pays the FEC-processing stall
 on its data time and the per-transmission overhead E[tx] times;
 ``round_airtime_adaptive`` prices a mixed-mode round client by client,
 and ``broadcast_airtime`` prices the downlink broadcast (one transmission
-per distinct mode).
-
-Not ported yet: ``arrival_times`` and ``sync_round_duration`` (ROADMAP
-Queue 1, item 7).
+per distinct mode). ``arrival_times`` and ``sync_round_duration`` price
+the buffered engine's event clock on the host, in float64.
 """
 
 from __future__ import annotations
@@ -34,6 +32,7 @@ from repro_torch.core import prng
 
 __all__ = ["DEFAULT_CALIB_CODEWORDS", "DEFAULT_CALIB_MAX_TX", "PhyTimings",
            "round_airtime", "round_airtime_adaptive", "broadcast_airtime",
+           "arrival_times", "sync_round_duration",
            "calibrate_ecrt", "ecrt_expected_tx_curve", "interp_expected_tx",
            "ecrt_expected_tx_profile"]
 
@@ -119,6 +118,40 @@ def broadcast_airtime(per_client_air, mode_idx=None) -> float:
         mode_idx = mode_idx.cpu()
     modes = np.asarray(mode_idx).reshape(-1)
     return float(sum(float(air[modes == m].max()) for m in np.unique(modes)))
+
+
+def _host64(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        x = x.cpu()
+    return np.asarray(x, np.float64)
+
+
+def arrival_times(t_dispatch: float, compute_s, air_s,
+                  downlink_s: float = 0.0) -> np.ndarray:
+    """Event-clock upload-arrival times of one dispatched wave, float64:
+    ``t_dispatch + downlink_s + compute_s[i] + air_s[i]``, summed in that
+    order. A dropped client (``air_s[i] == 0``) gets its ready-again time
+    from the same formula. The clock stays on the host in float64, since
+    the arrival order decides the buffered engine's aggregations."""
+    return (np.float64(t_dispatch) + np.float64(downlink_s)
+            + _host64(compute_s) + _host64(air_s))
+
+
+def sync_round_duration(compute_s, air_s, active=None) -> float:
+    """Wall-clock seconds of one synchronous (barrier) round: every active
+    client computes in parallel, then the TDMA uplink serializes them, so
+    ``max_i(compute_i) + sum_i(air_i)`` over the active clients (0.0 if
+    none is)."""
+    comp = _host64(compute_s).reshape(-1)
+    air = _host64(air_s).reshape(-1)
+    if active is not None:
+        if isinstance(active, torch.Tensor):
+            active = active.cpu()
+        act = np.asarray(active, bool).reshape(-1)
+        comp, air = comp[act], air[act]
+    if comp.size == 0:
+        return 0.0
+    return float(comp.max() + air.sum())
 
 
 def calibrate_ecrt(snr_db: float, modulation: str = "qpsk",

@@ -16,6 +16,9 @@ reproduces that key schedule integer for integer:
   ``torch.erfinv`` is not XLA's ``erf_inv``, so normals agree only to a
   few ULP (see ``tests/test_torch_prng.py``); everything else is exact;
 * ``bernoulli`` is ``uniform < p``, exact;
+* ``exponential`` is jax 0.9.0's ``-log1p(-u)`` on ``u ~ U[0, 1)``;
+  ``torch.log1p`` is not XLA's, so it agrees to a few ULP (see
+  ``tests/test_torch_async.py``);
 * ``gamma`` is jax's Marsaglia-Tsang sampler with its key consumption,
   vectorised over elements; it inherits the few ULP of ``normal`` (and
   of ``log`` in its acceptance test);
@@ -50,6 +53,7 @@ __all__ = [
     "uniform",
     "normal",
     "bernoulli",
+    "exponential",
     "gamma",
     "permutation",
 ]
@@ -202,6 +206,13 @@ def bernoulli(key: torch.Tensor, p: float, shape=()) -> torch.Tensor:
     < p`` with ``p`` in float32. Returns a bool tensor."""
     return uniform(key, shape) < torch.tensor(p, dtype=torch.float32,
                                               device=key.device)
+
+
+def exponential(key: torch.Tensor, shape=()) -> torch.Tensor:
+    """``jax.random.exponential(key, shape, float32)``: ``-log1p(-u)`` on
+    ``u = uniform(key, shape)`` (``1 - u`` keeps the log's argument in
+    ``(0, 1]``). ``key`` may be batched ``(..., 2)``."""
+    return -torch.log1p(-uniform(key, shape))
 
 
 def _f32(v: float, device) -> torch.Tensor:

@@ -153,8 +153,10 @@ airtime, ``FLResult.link``, launch counters).
   counts and exemplars on the engine's device, keyed by the round key on
   the reserved obs lane.
 
-The asynchronous engine (ROADMAP item 7) is not ported yet; its
-``EventRecord`` and ``TraceRecorder`` are.
+The buffered asynchronous engine (``fl/async_engine.py``) runs the same
+round body (:meth:`RoundEngine._round_body`: link step, downlink,
+payloads, uplink) on each wave, with a member mask and without the PS
+mean, and aggregates at its own event times.
 """
 
 from __future__ import annotations
@@ -220,8 +222,8 @@ class FLResult:
     # records also carry the ``uplink_*`` aggregates, with sketches the
     # round's ``sketches`` group.
     records: list = dataclasses.field(default_factory=list)
-    # Event-clock times of each eval point; only a buffered asynchronous
-    # engine fills it (not ported yet), so it stays [].
+    # Event-clock times of each eval point; only the buffered engine
+    # (fl/async_engine.py) fills it, the sync engine leaves it [].
     event_s: list = dataclasses.field(default_factory=list)
 
 
@@ -672,34 +674,51 @@ class RoundEngine:
 
     # ------------------------------------------------------------- uplink
 
-    def _uplink(self, payload, key):
-        """One round's uplink + aggregation: ``(aggregate tree, stats)``."""
-        tcfg, dev = self.transport_cfg, self.device
+    def _transmit(self, payload, key, rnd, member=None):
+        """One round's (or wave's) uplink, without the PS mean: ``(hat,
+        agg, stats)`` with ``hat`` the per-client received tree (layered
+        and compressed rounds) or ``agg`` the fused aggregate (K1 or K2 on
+        a ``use_kernel`` config). ``member`` (a host ``(M,)`` 0/1 tensor,
+        ``None`` for the whole cohort) weights a fused wave and keeps
+        absent clients' EF residuals; the rows of absent clients are still
+        sent and dropped."""
+        if self.compression is not None:
+            return self._uplink_compressed(payload, key, rnd, member)
+        tcfg, dev, drv = self.transport_cfg, self.device, self.driver
+        if drv is None:
+            if self.fused_aggregate:
+                w = (self.uniform_w if member is None
+                     else aggregation_lib.normalize_weights(member).to(dev))
+                agg, stats = transport_lib.transmit_pytree_batch_aggregate(
+                    payload, key, tcfg, w, device=dev)
+                return None, agg, stats
+            hat, stats = self.algo.wrap_uplink(
+                payload, lambda t: transport_lib.transmit_pytree_batch(
+                    t, key, tcfg, device=dev))
+            return hat, None, stats
         if self.fused_aggregate:
-            return transport_lib.transmit_pytree_batch_aggregate(
-                payload, key, tcfg, self.uniform_w, device=dev)
-        hat, stats = self.algo.wrap_uplink(
-            payload, lambda t: transport_lib.transmit_pytree_batch(
-                t, key, tcfg, device=dev))
-        return {k: g.mean(dim=0) for k, g in hat.items()}, stats
-
-    def _uplink_scenario(self, payload, key, rnd):
-        """One scenario round's mixed-mode uplink + aggregation under the
-        engine's dispatch: ``(aggregate tree, stats)``."""
-        dev, drv = self.device, self.driver
-        active = rnd.active.to(dev)
-        if self.fused_aggregate:
-            return transport_lib.transmit_pytree_batch_adaptive_aggregate(
-                payload, key, drv.mode_cfgs, rnd.mode,
-                aggregation_lib.normalize_weights(active), snr_db=rnd.snr_db,
-                device=dev)
+            eff = rnd.active if member is None else member * rnd.active
+            w = aggregation_lib.normalize_weights(eff.to(dev))
+            agg, stats = \
+                transport_lib.transmit_pytree_batch_adaptive_aggregate(
+                    payload, key, drv.mode_cfgs, rnd.mode, w,
+                    snr_db=rnd.snr_db, device=dev)
+            return None, agg, stats
         cfgs = (self.select_cfgs if self.dispatch == "select"
                 else drv.mode_cfgs)
         hat, stats = self.algo.wrap_uplink(
             payload, lambda t: transport_lib.transmit_pytree_batch_adaptive(
                 t, key, cfgs, rnd.mode, snr_db=rnd.snr_db,
                 dispatch=self.dispatch, device=dev))
-        return dropout_weighted_mean(hat, active), stats
+        return hat, None, stats
+
+    def _aggregate(self, hat, rnd):
+        """The sync round's PS mean of a per-client tree: the mean over
+        clients driverless, :func:`dropout_weighted_mean` over the active
+        clients in scenario rounds."""
+        if rnd is None:
+            return {k: g.mean(dim=0) for k, g in hat.items()}
+        return dropout_weighted_mean(hat, rnd.active.to(self.device))
 
     # -------------------------------------------------------- compression
 
@@ -744,40 +763,43 @@ class RoundEngine:
         with spans.span("keys"):
             return prng.fold_in(keys, sparsify_lib.SELECT_KEY_LANE)
 
-    def _uplink_compressed(self, payload, key, rnd):
-        """One compressed round's uplink + aggregation under the run's
-        round shape: ``(aggregate tree, stats)``; updates the EF residual.
-        """
+    def _uplink_compressed(self, payload, key, rnd, member=None):
+        """One compressed round's uplink under the run's round shape:
+        ``(hat, None, stats)``; updates the EF residual (absent clients'
+        rows, ``member`` 0, keep theirs)."""
         comp, algo, dev = self.compression, self.algo, self.device
         flat, spec = transport_lib._flatten_client_tree(payload)
         M, D = flat.shape
+        old = self._ef_residual
         with spans.span("keys"):
             keys = transport_lib.client_keys(key, M)
         if rnd is None:
-            vals, idx, self._ef_residual = sparsify_lib.ef_select_batch(
-                self._ef_residual, flat, self._comp_k, comp,
-                self._selection_keys(keys))
+            vals, idx, new = sparsify_lib.ef_select_batch(
+                old, flat, self._comp_k, comp, self._selection_keys(keys),
+                active=member)
             hat_flat, stats = algo.wrap_uplink(
                 vals, lambda v: framing_lib.sparse_batch_with_keys(
                     v, idx, D, keys, self.transport_cfg,
                     transport_lib._resolve_batch_snr(
                         self.transport_cfg, M, None, dev), comp))
-            hat = transport_lib._unflatten_client_tree(hat_flat, spec)
-            return {k: g.mean(dim=0) for k, g in hat.items()}, stats
-        # Select rounds run the table with its kernel rows cleared and one
-        # budget for every mode; a row does not depend on the rest of its
-        # batch, so both dispatches run each mode on exactly its clients.
-        cfgs = (self.select_cfgs if self.dispatch == "select"
-                else self.driver.mode_cfgs)
-        active = rnd.active.to(dev)
-        acc = self._ef_residual + flat if comp.error_feedback else flat
-        hat_flat, stats, sent = self._sparse_bucketed_uplink(acc, keys, rnd,
-                                                             cfgs)
-        self._ef_residual = (acc - sent * active[:, None]
-                             if comp.error_feedback
-                             else torch.zeros_like(acc))
+        else:
+            # Select rounds run the table with its kernel rows cleared and
+            # one budget for every mode; a row does not depend on the rest
+            # of its batch, so both dispatches run each mode on exactly its
+            # clients.
+            cfgs = (self.select_cfgs if self.dispatch == "select"
+                    else self.driver.mode_cfgs)
+            eff = rnd.active if member is None else member * rnd.active
+            acc = old + flat if comp.error_feedback else flat
+            hat_flat, stats, sent = self._sparse_bucketed_uplink(
+                acc, keys, rnd, cfgs)
+            new = (acc - sent * eff.to(dev)[:, None] if comp.error_feedback
+                   else torch.zeros_like(acc))
+        if member is not None:
+            new = torch.where(member.to(dev)[:, None] > 0, new, old)
+        self._ef_residual = new
         hat = transport_lib._unflatten_client_tree(hat_flat, spec)
-        return dropout_weighted_mean(hat, active), stats
+        return hat, None, stats
 
     def _sparse_bucketed_uplink(self, acc, keys, rnd, cfgs):
         """Per-mode-budget sparse uplink over the round's mode buckets:
@@ -915,6 +937,58 @@ class RoundEngine:
 
     # ---------------------------------------------------------------- run
 
+    def _round_body(self, params, xb, yb, rk, member=None, aggregate=True):
+        """One round's (or wave's) work from the link step through the
+        uplink: ``(hat, agg, stats, dstats, rnd, phases)``, with ``phases``
+        the ``FLResult.phase_s`` entries of those steps, each closed by a
+        device synchronise. ``aggregate`` folds a per-client ``hat`` into
+        ``agg`` inside the uplink phase (the sync round); ``member`` (a
+        host 0/1 ``(M,)`` tensor) marks a wave's clients: the link step
+        observes only them, and only their previous estimate and EF
+        residual move."""
+        algo, dev, driver = self.algo, self.device, self.driver
+        phases, rnd, up_key = {}, None, rk
+        if driver is not None:
+            t_link = time.perf_counter()
+            k_link, up_key = prng.split(rk)
+            self.lstate, rnd = driver.round(
+                self.lstate, self.prev_mode, self.prev_est, k_link,
+                observed=member)
+            self.prev_mode = rnd.mode
+            self.prev_est = (rnd.est_db if member is None else torch.where(
+                member > 0, rnd.est_db, self.prev_est))
+            phases["link"] = time.perf_counter() - t_link
+        dstats = None
+        t0 = time.perf_counter()
+        if self.downlink is not None:
+            with spans.collect(dev) as dparts:
+                recv, dstats = self._broadcast(params, up_key, rnd)
+            _sync(dev)
+            t_dl = time.perf_counter()
+            phases.update(downlink=t_dl - t0,
+                          downlink_keys=dparts.get("keys", 0.0),
+                          downlink_kernel=dparts.get("kernel", 0.0))
+            t0 = t_dl
+        if self.downlink is None or self._dl_lossless:
+            payload = algo.payload(params, xb, yb)
+        else:
+            payload = algo.payload_from(recv, xb, yb)
+        _sync(dev)
+        t1 = time.perf_counter()
+        with spans.collect(dev) as parts:
+            hat, agg, stats = self._transmit(payload, up_key, rnd, member)
+            if aggregate and agg is None:
+                agg = self._aggregate(hat, rnd)
+        _sync(dev)
+        phases.update(gradients=t1 - t0, uplink=time.perf_counter() - t1,
+                      uplink_keys=parts.get("keys", 0.0),
+                      uplink_kernel=parts.get("kernel", 0.0))
+        return hat, agg, stats, dstats, rnd, phases
+
+    def _eval_acc(self, params) -> float:
+        """Test-set accuracy of ``params``."""
+        return float(cnn.accuracy(params, self.test_x, self.test_y))
+
     def run(self) -> FLResult:
         """Drive ``n_rounds`` rounds and return the :class:`FLResult`."""
         algo, dev = self.algo, self.device
@@ -930,50 +1004,13 @@ class RoundEngine:
             key, rk = prng.split(key)
             with self._scope("sample"):
                 xb, yb = algo.sample(rng, self.client_x, self.client_y, dev)
-            phases, rnd, up_key = {}, None, rk
             with self._scope("round"):
-                if driver is not None:
-                    t_link = time.perf_counter()
-                    k_link, up_key = prng.split(rk)
-                    self.lstate, rnd = driver.round(
-                        self.lstate, self.prev_mode, self.prev_est, k_link)
-                    self.prev_mode, self.prev_est = rnd.mode, rnd.est_db
-                    phases["link"] = time.perf_counter() - t_link
-                dstats = None
-                t0 = time.perf_counter()
-                if self.downlink is not None:
-                    with spans.collect(dev) as dparts:
-                        recv, dstats = self._broadcast(params, up_key, rnd)
-                    _sync(dev)
-                    t_dl = time.perf_counter()
-                    phases.update(downlink=t_dl - t0,
-                                  downlink_keys=dparts.get("keys", 0.0),
-                                  downlink_kernel=dparts.get("kernel", 0.0))
-                    t0 = t_dl
-                if self.downlink is None or self._dl_lossless:
-                    payload = algo.payload(params, xb, yb)
-                else:
-                    payload = algo.payload_from(recv, xb, yb)
-                _sync(dev)
-                t1 = time.perf_counter()
-                with spans.collect(dev) as parts:
-                    if self.compression is not None:
-                        agg, stats = self._uplink_compressed(payload, up_key,
-                                                             rnd)
-                    elif driver is None:
-                        agg, stats = self._uplink(payload, rk)
-                    else:
-                        agg, stats = self._uplink_scenario(payload, up_key,
-                                                           rnd)
-                _sync(dev)
+                _, agg, stats, dstats, rnd, phases = self._round_body(
+                    params, xb, yb, rk)
                 t2 = time.perf_counter()
                 params, aux = algo.apply(params, aux, agg)
                 _sync(dev)
-                t3 = time.perf_counter()
-            phases.update(gradients=t1 - t0, uplink=t2 - t1,
-                          uplink_keys=parts.get("keys", 0.0),
-                          uplink_kernel=parts.get("kernel", 0.0),
-                          apply=t3 - t2, eval=0.0)
+                phases.update(apply=time.perf_counter() - t2, eval=0.0)
             with self._scope("telemetry"):
                 # TDMA uplink: total airtime is the sum over clients.
                 if driver is not None:
@@ -1004,8 +1041,7 @@ class RoundEngine:
             if r % self.eval_every == 0 or r == self.n_rounds - 1:
                 with self._scope("eval"):
                     t4 = time.perf_counter()
-                    acc = float(cnn.accuracy(params, self.test_x,
-                                             self.test_y))
+                    acc = self._eval_acc(params)
                     phases["eval"] = time.perf_counter() - t4
                 res.rounds.append(r)
                 res.accuracy.append(acc)

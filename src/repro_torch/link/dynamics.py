@@ -10,9 +10,15 @@ agree to the few ULP of ``prng.normal``.
 Everything runs on the device of the key or the state it is given; the
 FL engine keeps the link step on the host beside its key schedule.
 
-The event layer of the asynchronous engine (``client_speed_factors``,
-``compute_times``, ``churn_step``, ``idle_gaps``) is ROADMAP Queue 1,
-item 7; its two configs are here because scenario presets carry them.
+The event layer of the buffered engine (``fl/async_engine.py``):
+``client_speed_factors``, ``compute_times``, ``churn_step`` and
+``idle_gaps``. Client ``i`` draws from ``fold_in(key, LANE + i)`` on its
+own reserved lane (``COMPUTE_KEY_LANE``, ``EVENT_KEY_LANE``,
+``EVENT_GAP_KEY_LANE``), so a client's draw does not depend on the cohort
+it is drawn with. ``churn_step`` compares uniforms and is Exact; the other
+three pass through ``exp``, ``log1p`` or ``erfinv`` and agree with the
+reference to a few ULP. Degenerate configs give exactly ``mean_s``,
+``1.0`` and ``0.0``.
 """
 
 from __future__ import annotations
@@ -47,10 +53,6 @@ __all__ = [
 COMPUTE_KEY_LANE = keylanes.COMPUTE_KEY_LANE
 EVENT_KEY_LANE = keylanes.EVENT_KEY_LANE
 EVENT_GAP_KEY_LANE = keylanes.EVENT_GAP_KEY_LANE
-
-_EVENT_LAYER = ("the asynchronous event layer is not ported yet: ROADMAP "
-                "Queue 1, item 7 'fl/async_engine.py'")
-
 
 @dataclasses.dataclass(frozen=True)
 class ComputeTimeConfig:
@@ -201,28 +203,63 @@ def trajectory(key: torch.Tensor, cfg: LinkDynamicsConfig, num_clients: int,
         (0, num_clients), dtype=torch.float32, device=key.device)
 
 
-def client_speed_factors(key, num_clients, cfg):
-    """Frozen per-client speed factors of the buffered engine (not ported
-    yet: raises ``NotImplementedError``)."""
-    raise NotImplementedError(_EVENT_LAYER)
+def _lane_keys(key: torch.Tensor, lane: keylanes.Lane,
+               num_clients: int) -> torch.Tensor:
+    """``(num_clients, 2)`` keys ``fold_in(key, lane + i)``."""
+    keylanes.check_cohort(lane, num_clients)
+    idx = torch.arange(num_clients, dtype=torch.int64, device=key.device)
+    return prng.fold_in(key, idx + int(lane))
 
 
-def compute_times(key, cfg, num_clients, speed=None):
-    """Per-wave local-computation times of the buffered engine (not ported
-    yet: raises ``NotImplementedError``)."""
-    raise NotImplementedError(_EVENT_LAYER)
+def client_speed_factors(key: torch.Tensor, num_clients: int,
+                         cfg: ComputeTimeConfig) -> torch.Tensor:
+    """Frozen per-client lognormal speed multipliers ``exp(speed_spread *
+    z)``, ``(num_clients,)``. Callers pass ``fold_in(run_key,
+    COMPUTE_KEY_LANE)``, which consumes no split; ``speed_spread = 0``
+    gives exactly 1.0 (``exp(+-0.0)``)."""
+    z = prng.normal(_lane_keys(key, COMPUTE_KEY_LANE, num_clients), ())
+    return torch.exp(_f32(cfg.speed_spread, z) * z)
 
 
-def churn_step(key, joined, cfg):
-    """One join/leave update of the buffered engine (not ported yet:
-    raises ``NotImplementedError``)."""
-    raise NotImplementedError(_EVENT_LAYER)
+def compute_times(key: torch.Tensor, cfg: ComputeTimeConfig,
+                  num_clients: int, speed=None) -> torch.Tensor:
+    """Per-(wave, client) local-computation seconds, ``(num_clients,)``:
+    client ``i`` splits ``fold_in(key, COMPUTE_KEY_LANE + i)`` into ``(kz,
+    ku)``, draws a normal from ``kz`` and a uniform from ``ku``, and takes
+    ``mean_s * exp(jitter * z) * slow`` (``slow`` the straggler factor
+    where ``u < straggler_prob``), then ``* speed``. The default config
+    gives exactly ``mean_s``."""
+    kz, ku = prng.split_batched(
+        _lane_keys(key, COMPUTE_KEY_LANE, num_clients))
+    z, u = prng.normal(kz, ()), prng.uniform(ku, ())
+    slow = torch.where(u < _f32(cfg.straggler_prob, u),
+                       _f32(cfg.straggler_factor, u), _f32(1.0, u))
+    t = _f32(cfg.mean_s, z) * torch.exp(_f32(cfg.jitter, z) * z) * slow
+    if speed is not None:
+        t = t * torch.as_tensor(speed, dtype=torch.float32).to(t.device)
+    return t
 
 
-def idle_gaps(key, num_clients, cfg):
-    """Post-upload idle gaps of the buffered engine (not ported yet:
-    raises ``NotImplementedError``)."""
-    raise NotImplementedError(_EVENT_LAYER)
+def churn_step(key: torch.Tensor, joined, cfg: ArrivalConfig) -> torch.Tensor:
+    """One dispatch attempt's join/leave update, ``(num_clients,)`` 0/1
+    float32: a joined client stays while ``u >= p_leave``, an absent one
+    rejoins where ``u < p_rejoin``, with ``u`` from ``fold_in(key,
+    EVENT_KEY_LANE + i)``."""
+    joined = torch.as_tensor(joined).to(key.device)
+    u = prng.uniform(_lane_keys(key, EVENT_KEY_LANE, int(joined.shape[0])),
+                     ())
+    return torch.where(joined > 0, u >= _f32(cfg.p_leave, u),
+                       u < _f32(cfg.p_rejoin, u)).to(torch.float32)
+
+
+def idle_gaps(key: torch.Tensor, num_clients: int,
+              cfg: ArrivalConfig) -> torch.Tensor:
+    """Per-client exponential post-upload idle gaps in seconds,
+    ``(num_clients,)``, from ``fold_in(key, EVENT_GAP_KEY_LANE + i)``;
+    ``mean_idle_s = 0`` gives exactly 0.0."""
+    g = prng.exponential(_lane_keys(key, EVENT_GAP_KEY_LANE, num_clients),
+                         ())
+    return g * _f32(cfg.mean_idle_s, g)
 
 
 # Named mobility profiles (round interval ~1 s assumed for the rho values).

@@ -801,3 +801,85 @@ def test_round_group_card_equals_cpu(cuda_device):
                                         for k, v in arrs.items()})
         assert json.dumps(got) == json.dumps(want), rnd
     assert card.summary() == host.summary()
+
+
+def _buffered_world(n, seed=0):
+    rng = np.random.default_rng(seed)
+    cx = rng.uniform(0, 1, (n, 16, 28, 28)).astype(np.float32)
+    cy = rng.integers(0, 10, (n, 16)).astype(np.int32)
+    return cx, cy, cx[0], cy[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True])
+def test_degenerate_buffered_equals_sync_on_card(cuda_device, fused):
+    """``buffer_k = None``, the default compute model and constant weights:
+    the buffered run on the card is the sync run on the card bit for bit
+    (params, accuracy, airtime, launches), driverless and ``vehicular``
+    bucketed, layered (K1) and fused (K2)."""
+    import dataclasses
+
+    from repro_torch.configs.mnist_cnn import config
+    from repro_torch.fl import AsyncRoundEngine
+    from repro_torch.fl import engine as TE
+    from repro_torch.link import scenario as TS
+
+    world = _buffered_world(6)
+    cfg = TT.TransportConfig(mode="approx", use_kernel=True,
+                             channel=TCH.ChannelConfig(snr_db=10.0))
+    scen = dataclasses.replace(TS.get_scenario("vehicular"),
+                               ecrt_expected_tx=2.0)
+    for sc in (None, scen):
+        runs = []
+        for cls in (TE.RoundEngine, AsyncRoundEngine):
+            TAC.reset_launch_counts()
+            eng = cls(TE.FedSGD(config(), batch_per_round=8), cfg, *world,
+                      n_rounds=3, eval_every=1, scenario=sc,
+                      fused_aggregate=fused)
+            runs.append((eng, eng.run(), TAC.launch_counts()))
+        (ea, a, la), (eb, b, lb) = runs
+        assert la == lb and la["k2" if fused else "k1"] >= 3
+        for k in ea.params:
+            assert torch.equal(ea.params[k], eb.params[k]), k
+        assert (a.accuracy, a.airtime_s, a.link) == (b.accuracy, b.airtime_s,
+                                                     b.link)
+        assert len(b.event_s) == 3 and len(b.phase_s) == 3
+
+
+@pytest.mark.cuda
+def test_metro_rush_buffered_card_vs_cpu(cuda_device):
+    """A 6-client ``metro-rush`` buffered run (``buffer_k=2``, polynomial):
+    the event schedule lives on the host, so the card's schedule,
+    ``event_s`` and link records equal the CPU's; accuracy within 2 of 16
+    test images."""
+    import dataclasses
+
+    from repro_torch.configs.mnist_cnn import config
+    from repro_torch.fl import run_fl_buffered
+    from repro_torch.link import scenario as TS
+    from repro_torch.obs import trace as TTR
+
+    world = _buffered_world(6, seed=2)
+    cfg = TT.TransportConfig(mode="approx", use_kernel=True,
+                             channel=TCH.ChannelConfig(snr_db=10.0))
+    scen = dataclasses.replace(TS.get_scenario("metro-rush"),
+                               ecrt_expected_tx=2.0)
+    kw = dict(n_rounds=4, batch_per_round=8, eval_every=1, seed=11,
+              scenario=scen, buffer_k=2, staleness="polynomial")
+    runs = []
+    for dev in (cuda_device, "cpu"):
+        tr = TTR.TraceRecorder()
+        TAC.reset_launch_counts()
+        res = run_fl_buffered(config(), cfg, *world, trace=tr, device=dev,
+                              **kw)
+        runs.append((res, tr, TAC.launch_counts()))
+    (a, ta, la), (b, tb, lb) = runs
+    assert la["k1"] > 0 and lb == {"k0": 0, "k1": 0, "k2": 0}
+    assert [(e.kind, e.wave, e.client, e.version) for e in ta.events] == [
+        (e.kind, e.wave, e.client, e.version) for e in tb.events]
+    assert a.event_s == pytest.approx(b.event_s, rel=1e-6)
+    assert [list(r) for r in a.link] == [list(r) for r in b.link]
+    for f in ("mode_counts", "n_active", "n_stragglers"):
+        assert [r[f] for r in a.link] == [r[f] for r in b.link], f
+    assert all(abs(p - q) <= 2 / 16 + 1e-6
+               for p, q in zip(a.accuracy, b.accuracy))

@@ -152,7 +152,7 @@ def test_fused_round_update_exact(params, world):
                          fused_aggregate=True, device="cpu")
     eng.params = params_from_jax(params)
     tg = {k: torch.from_numpy(np.array(v)) for k, v in grads.items()}
-    agg_t, st_t = eng._uplink(tg, P.PRNGKey(5))
+    _, agg_t, st_t = eng._transmit(tg, P.PRNGKey(5), None)
     for k in params:
         np.testing.assert_array_equal(
             agg_t[k].numpy().view(np.uint32),

@@ -132,11 +132,21 @@ def test_trajectory_vs_reference():
 
 
 def test_event_layer_names_its_item():
-    for call in (lambda: TD.compute_times(P.PRNGKey(0),
-                                          TD.ComputeTimeConfig(), 4),
-                 lambda: TD.idle_gaps(P.PRNGKey(0), 4, TD.ArrivalConfig())):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            call()
+    """Item 7's event layer is ported: the four draws run on the key's
+    device and equal the reference's on the degenerate configs (the full
+    grades are in ``tests/test_torch_async.py``)."""
+    key, jkey = P.PRNGKey(0), jax.random.PRNGKey(0)
+    for got, ref in (
+            (TD.compute_times(key, TD.ComputeTimeConfig(), 4),
+             JD.compute_times(jkey, JD.ComputeTimeConfig(), 4)),
+            (TD.client_speed_factors(key, 4, TD.ComputeTimeConfig()),
+             JD.client_speed_factors(jkey, 4, JD.ComputeTimeConfig())),
+            (TD.idle_gaps(key, 4, TD.ArrivalConfig()),
+             JD.idle_gaps(jkey, 4, JD.ArrivalConfig())),
+            (TD.churn_step(key, torch.ones(4), TD.ArrivalConfig()),
+             JD.churn_step(jkey, jnp.ones(4), JD.ArrivalConfig()))):
+        assert got.device == key.device and got.dtype == torch.float32
+        np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
 
 
 # ------------------------------------------------------------------ prng

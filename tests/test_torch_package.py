@@ -81,7 +81,8 @@ def test_port_covers_its_modules():
                 "kernels/approx_channel.py", "kernels/ops.py",
                 "fl/engine.py", "fl/loop.py", "fl/fedavg.py", "convert.py",
                 "link/dynamics.py", "link/estimator.py", "link/policy.py",
-                "link/scenario.py", "compress/sparsify.py"):
+                "link/scenario.py", "compress/sparsify.py",
+                "fl/async_engine.py"):
         assert mod in names
     assert (ROOT / "src/repro_torch/kernels/csrc/approx_channel.cu").exists()
 
@@ -154,6 +155,27 @@ def test_entry_points_need_a_gpu_unless_asked(monkeypatch):
                      local_steps=1, batch_per_step=4,
                      downlink=TS.DownlinkConfig(), device="cpu")
     assert np.isfinite(res.final_accuracy) and len(res.link) == 1
+
+
+def test_buffered_entry_points_need_a_gpu_unless_asked(monkeypatch):
+    """``run_fl_buffered``, ``run_fedavg_buffered`` and
+    ``AsyncRoundEngine`` default to the GPU like the sync entry points."""
+    from repro_torch.fl import (AsyncRoundEngine, FedSGD,
+                                run_fedavg_buffered, run_fl_buffered)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    kw = dict(n_rounds=1, batch_per_round=4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_fl_buffered(config(), _approx(), *_world(), **kw)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_fedavg_buffered(config(), _approx(), *_world(), n_rounds=1,
+                            local_steps=1, batch_per_step=4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        AsyncRoundEngine(FedSGD(config(), batch_per_round=4), _approx(),
+                         *_world(), n_rounds=1)
+    res = run_fl_buffered(config(), _approx(), *_world(), device="cpu",
+                          scenario="metro-rush", buffer_k=1, **kw)
+    assert np.isfinite(res.final_accuracy) and len(res.event_s) == 1
 
 
 def test_kernel_wrappers_reject_other_devices():
