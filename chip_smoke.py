@@ -7,8 +7,9 @@
 Drives the port (``src/repro_torch``) through its main path — the paper's
 FedSGD rounds over the approximate uplink, then the link-adaptation,
 FedAvg, downlink and sparse-uplink rounds built on it, with the
-observability sinks attached, and the buffered asynchronous engine's
-waves — and holds both
+observability sinks attached, the buffered asynchronous engine's
+waves, and the LLM trainer and server at qwen2-1.5b's full width — and
+holds both
 CUDA kernels against their plain PyTorch versions. Phases, each of which
 fails the run
 (non-zero exit) when it fails:
@@ -150,6 +151,28 @@ fails the run
    run's peak memory. Then a 6-client ``metro-rush`` buffered run on the
    card against the CPU: the same event stream, ``event_s`` and link
    records, accuracy within 2 test images.
+5i. The LLM trainer (``python -m repro_torch.launch.train``'s ``main``):
+   qwen2-1.5b at its published widths (1,777,088,000 params, bf16),
+   ``TokenStream(vocab, 256, 8)``, 3 FedSGD steps at approx QPSK 10 dB
+   Rayleigh on the kernel path, a world of one. Launch counters from 0
+   just before, read just after: K0 (= K1) once a step. Per step: the
+   loss (finite), forward and backward, uplink keys, K0 and apply (spans),
+   the row's int32 bit-error count beside 2**31, peak memory. Then step
+   0 by hand: ``init_params``' time and peak; its loss equal to the
+   trainer's; a perfect uplink leaving the gradient bit for bit and a
+   perfect step equal to SGD on it; ``transmit_pytree`` of step 0's
+   gradient under the trainer's key with the trainer's error count, tiles
+   0, 262,143, 262,144 (either side of the uint32 symbol counter's wrap)
+   and the last, padded one against the plain version on the card and the
+   CPU; K0's whole row timed and held against the plain version tile range
+   by tile range (0 differing words, errors equal modulo 2**32); a
+   2**28 + 1,024-word row likewise; one layered approx step at the
+   trainer's ``--reduced`` widths (no launch).
+5j. The server (``repro_torch.launch.serve``'s ``main``) at full width,
+   batch 4, 32 prompt + 16 generated tokens, full and ring caches:
+   tokens a second and peak memory; then decode at the 32 prompt
+   positions against ``forward`` (and the prefill step against its last
+   position, bit for bit), within ``DECODE_RTOL`` and ``DECODE_ULPS``.
 6. Times at the main-path shape (C=100, N=22,528, QPSK, f32; K0 at C=1):
    kernel and plain version with CUDA events (median of single launches
    after a warm-up), each kernel's bound from bytes and operations, the
@@ -161,8 +184,9 @@ fails the run
    round 0's ``iot-lowrate`` uncoded buckets), one padded tile a client,
    beside the bound of the ``k`` words.
 7. The result: a JSON line of the kernels (``launches`` counts phase 5's,
-   5e's, 5f's, 5g's and 5h's runs), ``nvidia-smi``'s line, and as the
-   last line ``{"ok": true, "device": {...}}``.
+   5e's, 5f's, 5g's, 5h's and 5i's runs; K0's row is the trainer's row
+   from 5i: its time, plain time, bound and error), ``nvidia-smi``'s line,
+   and as the last line ``{"ok": true, "device": {...}}``.
 
 Needs one GPU, no network, and finishes in a few minutes. Exits non-zero,
 printing no result, without a GPU or outside a checkout of the repository.
@@ -2274,8 +2298,381 @@ def phase_buffered(torch, device, small: bool, main_runs: dict,
     return launches
 
 
+# ------------------------------------------- phases 5i / 5j: the LLM
+
+
+LLM_ARCH = "qwen2-1.5b"
+LLM_PARAMS = 1_777_088_000
+COUNTER_WRAP_TILE = 262_144  # 2**32 symbols / (1024 words x 16 symbols)
+PLAIN_CHUNK_TILES = 2048  # tiles per plain-version chunk (~9 GB of temps)
+# Decode against forward in bf16: the reference test's rtol
+# (test_models_smoke.py::test_decode_matches_forward, 2 layers at d_model
+# 128, atol 5e-2). At full width the logits are bf16 matmul outputs of a
+# hidden state that went through 28 layers of bf16 rounding, which decode
+# (one row a layer) and forward (128 rows) sum in other orders: the
+# absolute term is DECODE_ULPS bf16 ULPs of the largest logit.
+DECODE_RTOL, DECODE_ULPS = 3e-2, 4
+
+
+def _llm_cfg(small: bool):
+    """qwen2-1.5b at its published widths; on the CPU rehearsal the
+    trainer's ``--reduced`` widths."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(LLM_ARCH)
+    return cfg.reduced(n_layers=4, d_model=256, d_ff=512,
+                       vocab_size=1024) if small else cfg
+
+
+def _gib(torch, device) -> float:
+    if device.type != "cuda":
+        return float("nan")
+    return torch.cuda.max_memory_allocated(device) / 2**30
+
+
+def _reset_peak(torch, device) -> None:
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def _timed(torch, device, fn):
+    """``(fn(), ms)``: CUDA events on the GPU, the host clock on the CPU."""
+    if device.type == "cuda":
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end)
+    t0 = time.perf_counter()
+    out = fn()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _flat_words(torch, leaves, lo: int, hi: int):
+    """Words ``[lo, hi)`` of the sorted-key concatenation of ``leaves``
+    as float32, without building the whole flat payload."""
+    out, off = [], 0
+    for leaf in leaves:
+        n = leaf.numel()
+        a, b = max(lo, off), min(hi, off + n)
+        if a < b:
+            out.append(leaf.reshape(-1)[a - off:b - off].to(torch.float32))
+        off += n
+    return torch.cat(out)
+
+
+def _k0_vs_plain(torch, device, xp, out, seed, npow, gain, label):
+    """Every tile of K0's padded row ``out`` against the plain version of
+    ``xp``, chunk by chunk on the card (``first_tile``). Returns
+    ``(differing words, plain errors, max |err|, plain ms)``."""
+    from repro_torch.kernels import ref
+
+    tiles = xp.numel() // 1024
+    diff, errs, max_err, ms = 0, 0, 0.0, 0.0
+    for t in range(0, tiles, PLAIN_CHUNK_TILES):
+        n = min(PLAIN_CHUNK_TILES, tiles - t)
+        xs = xp[t * 1024:(t + n) * 1024]
+        (got, e), dt = _timed(torch, device, lambda: ref.ref_approx_channel(
+            xs, seed, npow, gain, first_tile=t))
+        ms += dt
+        kk = out[t * 1024:(t + n) * 1024]
+        diff += int((_bits(torch, kk) != _bits(torch, got)).sum())
+        errs += int(e)
+        dv = (kk - got).abs()
+        dv = dv[torch.isfinite(dv)]
+        if dv.numel():
+            max_err = max(max_err, float(dv.max()))
+    _log(f"  {label}: {tiles:,} tiles against the plain version in chunks "
+         f"of {PLAIN_CHUNK_TILES}: {diff} differing words, plain errors "
+         f"{errs:,}, plain {ms:.1f} ms in all")
+    return diff, errs, max_err, ms
+
+
+def phase_trainer(torch, device, small: bool, sass: dict, mhz) -> tuple:
+    """Phase 5i: the LLM FedSGD trainer. Returns ``(launches, K0's row of
+    the kernels line)``."""
+    from repro_torch.core import aggregation, channel, prng, transport
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.kernels import approx_channel as ac
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import steps, train
+    from repro_torch.models import registry as R
+    from repro_torch.optim.sgd import sgd
+
+    _log(f"== phase 5i: the LLM trainer ({LLM_ARCH}, "
+         f"{'reduced (rehearsal)' if small else 'full width'})")
+    t_phase = time.perf_counter()
+    cfg = _llm_cfg(small)
+    batch, seq, n_steps = (2, 16, 1) if small else (8, 256, 3)
+    argv = ["--arch", LLM_ARCH, "--steps", str(n_steps), "--mode", "approx",
+            "--use-kernel", "--snr-db", "10", "--batch", str(batch),
+            "--seq", str(seq), "--lr", "0.1", "--device", str(device)]
+    if small:
+        argv.append("--reduced")
+    records = []
+
+    def on_step(i, loss, stats, phase_s):
+        records.append({
+            "loss": float(loss), "phase_s": phase_s,
+            "k0": ac.launch_counts()["k0"],
+            "errors": float(stats.bit_errors), "n_bits": float(stats.n_bits),
+            "peak": _gib(torch, device)})
+        _reset_peak(torch, device)
+
+    # (a) The main path: train.main, counters from 0 just before it and
+    # read just after.
+    _reset_peak(torch, device)
+    ac.reset_launch_counts()
+    train.main(argv, on_step=on_step)
+    counts = ac.launch_counts()
+    want = n_steps if device.type == "cuda" else 0
+    _check(counts == {"k0": want, "k1": want, "k2": 0},
+           f"trainer launched {counts}, expected {want} K0 (= K1) launches")
+    prev = 0
+    for i, r in enumerate(records):
+        ph = r["phase_s"]
+        _log(f"  step {i}: loss {r['loss']:.4f}; grad (forward + backward) "
+             f"{ph.get('grad', 0) * 1e3:.1f} ms, uplink keys "
+             f"{ph.get('keys', 0) * 1e3:.2f} ms, K0 "
+             f"{ph.get('kernel', 0) * 1e3:.2f} ms, apply "
+             f"{ph.get('apply', 0) * 1e3:.1f} ms; K0 launches "
+             f"{r['k0'] - prev}; bit errors {r['errors']:.0f} of "
+             f"{r['n_bits']:.0f} bits (the int32 count, as float32; read "
+             f"as uint32 {int(r['errors']) % 2**32:,}; 2**31 = {2**31:,}); "
+             f"peak {r['peak']:.3f} GiB")
+        _check(math.isfinite(r["loss"]), f"step {i}: loss not finite")
+        _check(r["k0"] - prev == (1 if device.type == "cuda" else 0),
+               f"step {i}: K0 launched {r['k0'] - prev} times")
+        _check(r["errors"] != 0, f"step {i}: no bit errors at 10 dB")
+        prev = r["k0"]
+
+    # (b) Step 0 again by hand: init time and peak, the gradient, a
+    # perfect uplink and step.
+    clock = Clock(torch, device)
+    clock.sync()
+    _reset_peak(torch, device)
+    t0 = time.perf_counter()
+    params = R.init_params(prng.PRNGKey(0, device=device), cfg)
+    clock.sync()
+    t_init = time.perf_counter() - t0
+    leaves, _ = transport.tree_flatten(params)
+    n_params = sum(p.numel() for p in leaves)
+    _log(f"  init_params: {n_params:,} params in {t_init:.2f} s, peak "
+         f"{_gib(torch, device):.3f} GiB")
+    _check(small or n_params == LLM_PARAMS, f"{n_params} params")
+    b0 = TokenStream(cfg.vocab_size, seq, batch).next_batch()
+    local = {k: torch.as_tensor(v).to(device) for k, v in b0.items()}
+    loss0, grads = steps.value_and_grad(cfg, params, local)
+    g32 = transport.tree_map(lambda g: g.to(torch.float32), grads)
+    del grads
+    _check(float(loss0) == records[0]["loss"],
+           f"step 0's loss {float(loss0)} != the trainer's "
+           f"{records[0]['loss']}")
+    sk = prng.split(prng.PRNGKey(0, device=device))[1]
+    perfect = transport.TransportConfig(mode="perfect")
+    same, _ = aggregation.approx_allreduce(g32, sk, perfect)
+    _check(all(torch.equal(a, b) for a, b in zip(
+        transport.tree_flatten(same)[0], transport.tree_flatten(g32)[0])),
+           "a perfect uplink changed the gradient")
+    del same
+    opt = sgd(0.1)
+    want_params, _ = opt.update(g32, opt.init(params), params)
+    step = steps.make_train_step_approx(cfg, opt, perfect)
+    got_params, _, lossp, stp = step(params, opt.init(params), b0, sk)
+    _check(all(torch.equal(a, b) for a, b in zip(
+        transport.tree_flatten(got_params)[0],
+        transport.tree_flatten(want_params)[0])),
+           "a perfect step differs from SGD on the raw gradient")
+    _check(float(stp.bit_errors) == 0, "a perfect uplink counted errors")
+    _log(f"  --mode perfect step: loss {float(lossp):.4f}; the uplink leaves "
+         f"the gradient bit for bit, params = SGD on it bit for bit")
+    del got_params, want_params, params, leaves
+
+    # (c) K0 on step 0's payload (the trainer's uplink under
+    # fold_in(key, rank 0)): the same errors as the main path's step 0,
+    # sampled tiles against the plain version on the card and the CPU.
+    tcfg = transport.TransportConfig(
+        mode="approx", channel=channel.ChannelConfig(snr_db=10.0),
+        simulate_fec=False, ecrt_expected_tx=1.1, use_kernel=True)
+    # rank 0's shard key, as approx_allreduce folds it: lint: ignore[keylane]
+    shard_key = prng.fold_in(sk, 0)
+    g_leaves, _ = transport.tree_flatten(g32)
+    n = sum(v.numel() for v in g_leaves)
+    tiles = -(-n // 1024)
+    ac.reset_launch_counts()
+    hat, stats = transport.transmit_pytree(g32, shard_key, tcfg,
+                                           device=device)
+    _check(ac.launch_counts()["k0"] == (1 if device.type == "cuda" else 0),
+           "transmit_pytree did not launch K0 once")
+    _check(float(stats.bit_errors) == records[0]["errors"],
+           f"K0 on step 0's payload: {float(stats.bit_errors)} errors, the "
+           f"trainer's step 0 {records[0]['errors']}")
+    hat_leaves, _ = transport.tree_flatten(hat)
+    seed = ops._seed_from_key(shard_key).to(device)
+    npow = torch.tensor(tcfg.channel.noise_power, dtype=torch.float32,
+                        device=device)
+    gain = torch.tensor(tcfg.channel.large_scale_gain, dtype=torch.float32,
+                        device=device)
+    sampled = sorted({0, COUNTER_WRAP_TILE - 1, COUNTER_WRAP_TILE,
+                      tiles - 1} & set(range(tiles)))
+    for t in sampled:
+        lo, hi = t * 1024, min((t + 1) * 1024, n)
+        xt = torch.nn.functional.pad(_flat_words(torch, g_leaves, lo, hi),
+                                     (0, 1024 - (hi - lo)))
+        kt = _flat_words(torch, hat_leaves, lo, hi).cpu()
+        for where in (device, torch.device("cpu")):
+            pt, _ = ref.ref_approx_channel(
+                xt.to(where), seed.to(where), npow.to(where),
+                gain.to(where), first_tile=t)
+            nd = int((_bits(torch, kt)
+                      != _bits(torch, pt[:hi - lo].cpu())).sum())
+            _check(nd == 0, f"K0 tile {t}: {nd} words differ from the "
+                   f"plain version on the {where.type}")
+        _log(f"  transmit_pytree, tile {t:,} (words {lo:,}-{hi - 1:,}): 0 "
+             f"differing words against the plain version on the card and "
+             f"on the CPU")
+    del hat, hat_leaves
+
+    # (d) The same row through the kernel wrapper, timed; then every tile
+    # against the plain version, chunk by chunk.
+    flat = torch.cat([v.reshape(-1) for v in g_leaves])
+    del g32, g_leaves
+    xp = ops._tiled(flat, 32, 1024)
+    del flat
+    kw = dict(bits_per_symbol=2, fading="rayleigh", clamp_mask=0xBFFFFFFF,
+              word_bits=32)
+    k0_ms = clock.median_ms(
+        lambda: ac.approx_channel_kernel(xp, seed, npow, gain, **kw),
+        3 if device.type == "cuda" else 1, warmup=1)
+    out, errs = ac.approx_channel_kernel(xp, seed, npow, gain, **kw)
+    # The count is int32 in both packages (the kernel's atomicAdd, the
+    # reference's sum): it wraps past 2**31 - 1, and the TxStats float32
+    # rounds it; compare modulo 2**32 and through float32.
+    errs_row = int(errs) - int(ops._padding_errors(out[None, n:], 32)[0])
+    _check(float(torch.tensor(errs_row, dtype=torch.float32))
+           == records[0]["errors"],
+           f"K0 row errors {errs_row} != step 0's {records[0]['errors']}")
+    diff, errs_plain, max_err, plain_ms = _k0_vs_plain(
+        torch, device, xp, out, seed, npow, gain, f"K0 row of {n:,} words")
+    _check(diff == 0 and (errs_plain - int(errs)) % 2**32 == 0,
+           f"K0 row: {diff} words differ, errors {int(errs)} vs plain "
+           f"{errs_plain}")
+    _log(f"  K0 row bit errors: {errs_plain:,} by the plain version (Python "
+         f"int); the kernel's int32 count {int(errs):,} "
+         f"({'wrapped past' if errs_plain >= 2**31 else 'under'} 2**31 = "
+         f"{2**31:,}); BER {errs_plain / (tiles * 1024 * 32):.4f}")
+    del xp, out
+    b = _bound(1, tiles * 1024, 2, "rayleigh", 32, "k1")
+    line = (f"  K0 at N = {n:,} ({tiles:,} tiles, grid {tiles * 32:,} "
+            f"blocks): {k0_ms:.2f} ms (median of 3), plain {plain_ms:.1f} ms;"
+            f" bound {b['bound_ms']:.2f} ms ({b['bound_by']}: "
+            f"{b['bytes'] / 1e9:.2f} GB -> {b['bytes_ms']:.2f} ms, "
+            f"{b['ops'] / 1e12:.2f} T ops -> {b['ops_ms']:.2f} ms)")
+    if sass.get("k1") and mhz:
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        floor = _issue_floor_ms(tiles * 1024 * 16, sass["k1"], sms, mhz)
+        line += (f"; issue-rate floor {floor:.2f} ms ({sass['k1']['total']} "
+                 f"instructions a symbol)")
+    _log(line)
+
+    # (e) A row of 2**28 + 1,024 words (tile 262,144 sees tile 0's draws:
+    # the uint32 symbol counter wraps there, as in the reference).
+    nw = 4 * 1024 + 512 if small else 2**28 + 1024
+    g = torch.Generator(device=device).manual_seed(19)
+    xw = torch.randn(nw, generator=g, device=device) * 1e-3
+    xwp = ops._tiled(xw, 32, 1024)
+    outw, errsw = ac.approx_channel_kernel(xwp, seed, npow, gain, **kw)
+    diffw, errs_pw, _, _ = _k0_vs_plain(torch, device, xwp, outw, seed, npow,
+                                        gain, f"K0 row of {nw:,} words")
+    _check(diffw == 0 and errs_pw == int(errsw),
+           f"K0 2**28 row: {diffw} words differ, errors {int(errsw)} vs "
+           f"plain {errs_pw}")
+    del xw, xwp, outw
+
+    # (f) One layered approx step (no kernel) at the trainer's --reduced
+    # widths: at full width even two layers carry 560 M floats, 9e9
+    # symbols, which the layered PHY cannot hold.
+    ac.reset_launch_counts()
+    lr = train.main(["--arch", LLM_ARCH, "--reduced", "--steps", "1",
+                     "--mode", "approx", "--batch", "2", "--seq", "16",
+                     "--device", str(device)])
+    _check(math.isfinite(lr) and ac.launch_counts() == {"k0": 0, "k1": 0,
+                                                        "k2": 0},
+           f"layered step: loss {lr}, launches {ac.launch_counts()}")
+    _log(f"  layered approx step (--reduced): loss {lr:.4f}, no launches")
+    _log(f"  phase 5i: {time.perf_counter() - t_phase:.1f} s")
+    row = {"name": "k0", "route": "cuda", "source": K1_SOURCE,
+           "replaces": K0_REPLACES, "launches": counts["k0"],
+           "max_abs_err": max_err, "ms": k0_ms, "plain_ms": plain_ms,
+           "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+           "library_ms": None}
+    return {"k0": counts["k0"], "k1": counts["k1"]}, row
+
+
+def phase_server(torch, device, small: bool) -> None:
+    """Phase 5j: the server, full and ring caches, and decode against the
+    training forward at the prompt's positions."""
+    from repro_torch.core import prng
+    from repro_torch.kernels import approx_channel as ac
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import registry as R
+
+    _log(f"== phase 5j: the server ({LLM_ARCH}, "
+         f"{'reduced (rehearsal)' if small else 'full width'})")
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    cfg = get_config(LLM_ARCH).reduced() if small else get_config(LLM_ARCH)
+    argv = ["--arch", LLM_ARCH, "--batch", "4", "--prompt-len", "32", "--gen",
+            "16", "--device", str(device)] + (["--reduced"] if small else [])
+    for ring in (False, True):
+        _reset_peak(torch, device)
+        ac.reset_launch_counts()
+        prompt, gen, rate = serve.main(argv + (["--ring"] if ring else []))
+        _check(tuple(gen.shape) == (4, 16) and int(gen.min()) >= 0
+               and int(gen.max()) < cfg.vocab_size,
+               f"ring={ring}: tokens {gen}")
+        _check(ac.launch_counts() == {"k0": 0, "k1": 0, "k2": 0},
+               "the server launched a channel kernel")
+        _log(f"  serve ring={ring}: {rate:.1f} tokens/s (batch 4, 32 + 16 "
+             f"tokens, token-by-token), peak {_gib(torch, device):.3f} GiB")
+    # decode == forward at the prompt's positions
+    key = prng.PRNGKey(0, device=device)
+    params = R.init_params(key, cfg)
+    prompt = prng.randint(key, (4, 32), 0, cfg.vocab_size).to(torch.int32)
+    with torch.no_grad():
+        ref_logits, _ = R.forward(params, {"tokens": prompt}, cfg)
+    last = steps.make_prefill_step(cfg)(params, {"tokens": prompt})
+    _check(torch.equal(last, ref_logits[:, -1]),
+           "prefill step != forward's last position")
+    for ring in (False, True):
+        cache = R.init_cache(cfg, 4, cfg.decode_window if ring else 32,
+                             device=device)
+        outs = []
+        for t in range(32):
+            lg, cache = R.decode_step(params, cache, prompt[:, t:t + 1], t,
+                                      cfg, ring=ring)
+            outs.append(lg[:, 0])
+        got = torch.stack(outs, dim=1)
+        err = (got - ref_logits).abs()
+        top = float(ref_logits.abs().max())
+        atol = DECODE_ULPS * 2.0 ** (math.floor(math.log2(top)) - 7)
+        tol = atol + DECODE_RTOL * ref_logits.abs()
+        agree = float((got.argmax(-1) == ref_logits.argmax(-1)).float().mean())
+        _log(f"  decode ring={ring} vs forward at 32 positions: max |diff| "
+             f"{float(err.max()):.4f}, max |diff| - tol "
+             f"{float((err - tol).max()):.4f} (rtol {DECODE_RTOL}, atol "
+             f"{atol:.4f} = {DECODE_ULPS} bf16 ULPs of max |logit| "
+             f"{top:.3f}); argmax agreement {agree:.4f}")
+        _check(bool((err <= tol).all()),
+               f"decode ring={ring} differs from forward beyond the bound")
+    _log(f"  phase 5j: {time.perf_counter() - t_phase:.1f} s")
+
+
 def phase_times(torch, device, small: bool, launches: dict, sass: dict,
-                mhz, buckets=(), sparse_shapes=()) -> list:
+                mhz, buckets=(), sparse_shapes=(), k0_row=None) -> list:
     from repro_torch.core import aggregation, prng, transport
     from repro_torch.kernels import approx_channel as ac
     from repro_torch.kernels import ops, ref
@@ -2355,6 +2752,10 @@ def phase_times(torch, device, small: bool, launches: dict, sass: dict,
                  f" instructions x {symbols / 1e6:.2f} M symbols over {sms} "
                  f"SMs x 128 lanes at {mhz:.0f} MHz); kernel at "
                  f"{floor / ms:.0%} of it")
+        if name == "k0" and k0_row is not None:
+            # the main path's K0 is the trainer's row (phase 5i)
+            rows.append(k0_row)
+            continue
         rows.append({
             "name": name, "route": "cuda", "source": K1_SOURCE,
             "replaces": replaces, "launches": launches[name],
@@ -2467,8 +2868,13 @@ def main(argv=None) -> int:
         for k, v in phase_buffered(torch, device, small, main_runs,
                                    link_runs).items():
             launches[k] += v
+        llm_launches, k0_row = phase_trainer(torch, device, small, sass, mhz)
+        for k, v in llm_launches.items():
+            launches[k] += v
+        k0_row["launches"] = launches["k0"]
+        phase_server(torch, device, small)
         rows = phase_times(torch, device, small, launches, sass, mhz,
-                           buckets, sparse_shapes)
+                           buckets, sparse_shapes, k0_row)
     except PhaseError as e:
         print(f"chip_smoke.py: FAILED: {e}", file=sys.stderr)
         return 1

@@ -1,0 +1,22 @@
+"""Phi-3.5-MoE (42B total / 6.6B active) — 16 experts top-2
+[hf:microsoft/Phi-3.5-MoE-instruct]."""
+
+from repro_torch.configs.base import ModelConfig, register
+
+
+@register("phi3.5-moe-42b-a6.6b")
+def config() -> ModelConfig:
+    return ModelConfig(
+        name="phi3.5-moe-42b-a6.6b",
+        family="moe",
+        n_layers=32,
+        d_model=4096,
+        n_heads=32,
+        n_kv_heads=8,
+        d_ff=0,
+        vocab_size=32064,
+        n_experts=16,
+        top_k=2,
+        moe_d_ff=6400,
+        source="hf:microsoft/Phi-3.5-MoE-instruct",
+    )

@@ -859,6 +859,13 @@ def tree_flatten(tree) -> tuple[list, Any]:
     return [tree], None
 
 
+def tree_map(fn, *trees):
+    """``fn`` over the leaves of (nested) dict trees of one structure."""
+    if isinstance(trees[0], dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
 def tree_unflatten(spec, leaves: list):
     """Inverse of :func:`tree_flatten`."""
     if spec is None:

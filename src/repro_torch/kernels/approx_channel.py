@@ -38,6 +38,7 @@ __all__ = [
     "approx_channel_batch_aggregate_kernel",
     "launch_counts",
     "reset_launch_counts",
+    "MAX_ROW_WORDS",
 ]
 
 _FADING = {"rayleigh": 0, "awgn": 1, "block_rayleigh": 2}
@@ -71,6 +72,20 @@ def _constellation(bits_per_symbol: int) -> tuple[float, float]:
     return float(np.float32(amp)), float(np.float32(1.0 / amp))
 
 
+# The kernels index a row's words with a 32-bit int (Params::n and the
+# word index i in csrc/approx_channel.cu).
+MAX_ROW_WORDS = 2**31 - 1
+
+
+def _check_row(x) -> None:
+    """Refuse a padded row longer than the kernels' int row index, on every
+    device (the plain version would run it, but the kernel could not)."""
+    if x.shape[-1] > MAX_ROW_WORDS:
+        raise ValueError(
+            f"a row of {x.shape[-1]} words (padded to whole tiles) exceeds "
+            f"the kernels' limit of 2**31 - 1 words")
+
+
 def _check_common(x, seeds, noise_powers, gains, *, bits_per_symbol, fading,
                   block_words, word_bits, fade_block):
     if x.device.type != "cuda":
@@ -91,7 +106,7 @@ def _check_common(x, seeds, noise_powers, gains, *, bits_per_symbol, fading,
         raise ValueError(f"N={n} must be a multiple of block_words={block_words}")
     if fade_block <= 0:
         raise ValueError("fade_block must be positive")
-    if not 0 < c < 65536 or n >= 2**31:
+    if not 0 < c < 65536:
         raise ValueError(f"unsupported payload shape {(c, n)}")
     for name, t in (("seeds", seeds), ("noise_powers", noise_powers),
                     ("large_scale_gains", gains)):
@@ -140,8 +155,10 @@ def approx_channel_batch_kernel(
       num_active: rows at or beyond it are masked: zeros, 0 errors, no PHY
         work.
 
-    Returns ``(x_hat (C, N) wire dtype, bit_errors (C,) int32)``.
+    Returns ``(x_hat (C, N) wire dtype, bit_errors (C,) int32)``; a row
+    over ``MAX_ROW_WORDS`` raises ``ValueError`` on any device.
     """
+    _check_row(x)
     if x.device.type == "cpu":
         return ref_lib.approx_channel_batch_ref(
             x, seeds, noise_powers, large_scale_gains,
@@ -198,8 +215,10 @@ def approx_channel_batch_aggregate_kernel(
     only the first ``valid_words`` words of each row; rows at or beyond
     ``num_active`` add nothing and report 0 errors.
 
-    Returns ``(agg (N,) float32, bit_errors (C,) int32)``.
+    Returns ``(agg (N,) float32, bit_errors (C,) int32)``; a row over
+    ``MAX_ROW_WORDS`` raises ``ValueError`` on any device.
     """
+    _check_row(x)
     if x.device.type == "cpu":
         return ref_lib.approx_channel_batch_aggregate_ref(
             x, seeds, noise_powers, large_scale_gains, weights,

@@ -223,8 +223,9 @@ def _active_rows(num_active, c: int) -> int:
 
 def _rows(x, seeds, noise_powers, gains, *, bits_per_symbol, fading,
           fade_block, clamp_mask, block_words, word_bits, rows,
-          with_edges=False):
-    """Words and received words (clamped) of the first ``rows`` clients."""
+          with_edges=False, first_tile=0):
+    """Words and received words (clamped) of the first ``rows`` clients;
+    the payload's tile 0 is the row's tile ``first_tile``."""
     c, n = x.shape
     if n % block_words != 0:
         raise ValueError(
@@ -232,8 +233,8 @@ def _rows(x, seeds, noise_powers, gains, *, bits_per_symbol, fading,
     tiles = n // block_words
     s_per_word = word_bits // bits_per_symbol
     u = _wire_bits(x[:rows], word_bits).reshape(rows, tiles, block_words)
-    base = (torch.arange(tiles, dtype=torch.int64, device=x.device)
-            * (block_words * s_per_word)) & M32
+    base = ((torch.arange(tiles, dtype=torch.int64, device=x.device)
+             + first_tile) * (block_words * s_per_word)) & M32
     out = channel_tile(
         u,
         seeds[:rows].to(torch.int64).reshape(rows, 1, 1) & M32,
@@ -263,6 +264,7 @@ def approx_channel_batch_ref(
     word_bits: int = 32,
     num_active=None,
     with_edges: bool = False,
+    first_tile: int = 0,
 ):
     """Plain version of K1, the batched uplink.
 
@@ -274,6 +276,9 @@ def approx_channel_batch_ref(
       num_active: rows at or beyond it return zeros and 0 errors.
       with_edges: also return the ``(C, N)`` per-word edge distances of
         :func:`channel_tile` (``inf`` on masked rows).
+      first_tile: the row tile that ``x``'s first tile is: a slice of whole
+        tiles of a longer row, starting at that tile, gets that slice of
+        the row's result (the plain version of a row too long to hold).
 
     Returns ``(x_hat (C, N) wire dtype, bit_errors (C,) int32)``.
     """
@@ -284,7 +289,7 @@ def approx_channel_batch_ref(
         bits_per_symbol=bits_per_symbol, fading=fading,
         fade_block=fade_block, clamp_mask=clamp_mask,
         block_words=block_words, word_bits=word_bits, rows=rows,
-        with_edges=with_edges)
+        with_edges=with_edges, first_tile=first_tile)
     wire = torch.bfloat16 if word_bits == 16 else torch.float32
     x_hat = torch.zeros((c, n), dtype=wire, device=x.device)
     x_hat[:rows] = _from_wire_bits(u_hat, word_bits)
@@ -345,9 +350,11 @@ def approx_channel_batch_aggregate_ref(
 def ref_approx_channel(x, seed, noise_power, large_scale_gain, *,
                        bits_per_symbol: int = 2, fading: str = "rayleigh",
                        fade_block: int = 64, clamp_mask: int = 0xBFFFFFFF,
-                       block_words: int = 1024, word_bits: int = 32):
+                       block_words: int = 1024, word_bits: int = 32,
+                       first_tile: int = 0):
     """Single-client plain version: ``x`` ``(N,)``; returns
-    ``(x_hat (N,), bit_errors () int32)``."""
+    ``(x_hat (N,), bit_errors () int32)``. ``first_tile`` as in
+    :func:`approx_channel_batch_ref`."""
     dev = x.device
     x_hat, errs = approx_channel_batch_ref(
         x[None, :],
@@ -358,5 +365,5 @@ def ref_approx_channel(x, seed, noise_power, large_scale_gain, *,
                         device=dev).reshape(1),
         bits_per_symbol=bits_per_symbol, fading=fading,
         fade_block=fade_block, clamp_mask=clamp_mask,
-        block_words=block_words, word_bits=word_bits)
+        block_words=block_words, word_bits=word_bits, first_tile=first_tile)
     return x_hat[0], errs[0]

@@ -1,6 +1,8 @@
 """SGD — the paper's optimizer (FedSGD, eq. (6): w <- w - eta g).
 
-Counterpart of ``repro.optim.sgd.sgd`` on parameter dicts of tensors.
+Counterpart of ``repro.optim.sgd.sgd`` on parameter dicts of tensors
+(nested dicts allowed, as the transformer's tree). The update runs in
+float32 and casts back to each parameter's dtype, as the reference's.
 """
 
 from __future__ import annotations
@@ -9,6 +11,8 @@ import dataclasses
 from typing import Any, Callable
 
 import torch
+
+from repro_torch.core.transport import tree_map
 
 __all__ = ["Optimizer", "sgd"]
 
@@ -31,8 +35,9 @@ def sgd(lr) -> Optimizer:
 
     def update(grads, state, params):
         eta = lr_fn(state["step"])
-        new = {k: (p.to(torch.float32) - eta * grads[k].to(torch.float32))
-               .to(p.dtype) for k, p in params.items()}
+        new = tree_map(lambda p, g: (p.to(torch.float32)
+                                     - eta * g.to(torch.float32)).to(p.dtype),
+                       params, grads)
         return new, {"step": state["step"] + 1}
 
     return Optimizer(init, update)

@@ -883,3 +883,109 @@ def test_metro_rush_buffered_card_vs_cpu(cuda_device):
         assert [r[f] for r in a.link] == [r[f] for r in b.link], f
     assert all(abs(p - q) <= 2 / 16 + 1e-6
                for p, q in zip(a.accuracy, b.accuracy))
+
+
+# ------------------------------------------- the LLM trainer and server
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2048, 2048 + 700])
+def test_k0_short_rows_match_plain(cuda_device, n):
+    """K0 (K1 at C=1) on a two-tile row and a padded three-tile row, with
+    noise: the plain version's words and errors bit for bit."""
+    g = torch.Generator().manual_seed(n)
+    x = (torch.rand(n, generator=g) * 1.8 - 0.9).to(cuda_device)
+    seed = torch.tensor(123456789, dtype=torch.int64)
+    npow = torch.tensor(1e-4)
+    before = TAC.launch_counts()["k0"]
+    got, errs = TO.approx_channel(x, seed.to(cuda_device),
+                                  npow.to(cuda_device), G0)
+    assert TAC.launch_counts()["k0"] == before + 1
+    pad = (-n) % 1024
+    want, werrs = TR.ref_approx_channel(
+        torch.nn.functional.pad(x.cpu(), (0, pad)), seed, npow,
+        torch.tensor(G0))
+    assert torch.equal(_bits(got.cpu()), _bits(want[:n]))
+    assert int(errs) == int(werrs) - int(TO._padding_errors(
+        want[None, n:], 32)[0]) and int(errs) > 0
+
+
+def _small_llm(dtype="float32"):
+    from repro_torch.configs import get_config
+
+    return get_config("qwen2-1.5b").reduced(
+        n_layers=2, d_model=64, d_ff=128, vocab_size=128, dtype=dtype)
+
+
+@pytest.mark.cuda
+def test_trainer_reduced_card_vs_cpu(cuda_device):
+    """Three approx steps of ``make_train_step_approx`` on the kernel path
+    (K0 once a step on the card, its plain version on the CPU), float32,
+    the same weights: step 0's loss within 1e-5, the rest within 0.25
+    (the CPU and cuBLAS sum in other orders, and the channel's flips
+    amplify it), the same bits on the air."""
+    from repro_torch.core import prng as P
+    from repro_torch.launch import steps as TST
+    from repro_torch.models import registry as R
+    from repro_torch.optim.sgd import sgd
+
+    cfg = _small_llm()
+    tcfg = TT.TransportConfig(mode="approx", use_kernel=True,
+                              channel=TCH.ChannelConfig(snr_db=20.0))
+    rng = np.random.default_rng(0)
+    batches = [{k: rng.integers(0, 128, (4, 32)).astype(np.int32)
+                for k in ("tokens", "labels")} for _ in range(3)]
+    losses = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        params = R.init_params(P.PRNGKey(0, device=dev), cfg)
+        opt = sgd(0.5)
+        state = opt.init(params)
+        step = TST.make_train_step_approx(cfg, opt, tcfg)
+        key = P.PRNGKey(0, device=dev)
+        out = []
+        for b in batches:
+            ks = P.split(key)
+            key = ks[0]
+            before = TAC.launch_counts()["k0"]
+            params, state, loss, st = step(params, state, b, ks[1])
+            assert TAC.launch_counts()["k0"] == before + (
+                1 if dev.type == "cuda" else 0)
+            out.append((float(loss), float(st.n_bits), float(st.bit_errors)))
+        losses[dev.type] = out
+    card, cpu = losses["cuda"], losses["cpu"]
+    assert abs(card[0][0] - cpu[0][0]) <= 1e-5
+    assert all(abs(a[0] - b[0]) <= 0.25 for a, b in zip(card, cpu))
+    assert [a[1] for a in card] == [b[1] for b in cpu]
+    assert all(a[2] > 0 for a in card)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ring", [False, True])
+def test_server_reduced_card_vs_cpu(cuda_device, ring):
+    """Greedy decode at reduced width, float32: the card's logits within
+    1e-4 (relative to the largest) of the CPU's at every step, the same
+    tokens."""
+    import dataclasses
+
+    from repro_torch.core import prng as P
+    from repro_torch.launch import steps as TST
+    from repro_torch.models import registry as R
+
+    cfg = dataclasses.replace(_small_llm(), decode_window=8)
+    tokens = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        params = R.init_params(P.PRNGKey(0, device=dev), cfg)
+        cache = R.init_cache(cfg, 2, 8 if ring else 16, device=dev)
+        tok = P.randint(P.PRNGKey(1, device=dev), (2, 1), 0, 128).to(
+            torch.int32)
+        step = TST.make_serve_step(cfg, ring=ring)
+        seq, logits = [], []
+        for pos in range(14):
+            lg, _ = R.decode_step(params, cache, tok, pos, cfg, ring=ring)
+            tok, cache = step(params, cache, tok, pos)
+            seq.append(tok.cpu())
+            logits.append(lg.cpu())
+        tokens[dev.type] = (torch.cat(seq, 1), torch.cat(logits, 1))
+    (ta, la), (tb, lb) = tokens["cuda"], tokens["cpu"]
+    assert torch.equal(ta, tb)
+    assert float((la - lb).abs().max()) <= 1e-4 * float(lb.abs().max())

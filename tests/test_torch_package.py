@@ -82,7 +82,13 @@ def test_port_covers_its_modules():
                 "fl/engine.py", "fl/loop.py", "fl/fedavg.py", "convert.py",
                 "link/dynamics.py", "link/estimator.py", "link/policy.py",
                 "link/scenario.py", "compress/sparsify.py",
-                "fl/async_engine.py"):
+                "fl/async_engine.py", "configs/base.py",
+                "configs/qwen2_1_5b.py", "models/layers.py",
+                "models/attention.py", "models/transformer.py",
+                "models/registry.py", "data/tokens.py", "launch/mesh.py",
+                "launch/sharding.py", "launch/steps.py", "launch/train.py",
+                "launch/serve.py", "launch/roofline.py",
+                "checkpoint/io.py"):
         assert mod in names
     assert (ROOT / "src/repro_torch/kernels/csrc/approx_channel.cu").exists()
 
@@ -155,6 +161,23 @@ def test_entry_points_need_a_gpu_unless_asked(monkeypatch):
                      local_steps=1, batch_per_step=4,
                      downlink=TS.DownlinkConfig(), device="cpu")
     assert np.isfinite(res.final_accuracy) and len(res.link) == 1
+
+
+def test_llm_entry_points_need_a_gpu_unless_asked(monkeypatch, capsys):
+    """The trainer and the server run on the GPU by default; ``--device
+    cpu`` runs them on the CPU."""
+    from repro_torch.launch import serve, train
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    small = ["--arch", "yi-6b", "--reduced"]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(small + ["--steps", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(small + ["--gen", "1"])
+    _, gen, _ = serve.main(small + ["--batch", "1", "--prompt-len", "2",
+                                 "--gen", "2", "--device", "cpu"])
+    assert gen.shape == (1, 2)
+    assert "yi-6b" in capsys.readouterr().out
 
 
 def test_buffered_entry_points_need_a_gpu_unless_asked(monkeypatch):
