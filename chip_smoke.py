@@ -16,10 +16,11 @@ fails the run
 
 1. Device: name, count, and ``nvidia-smi``'s name and power limit.
 2. Build: the kernels from ``src/repro_torch/kernels/csrc`` with nvcc
-   (time, and ``-Xptxas -v``'s registers and spills; a build reused from
-   an earlier run in the same checkout reports the log saved with it),
-   and the SASS of one symbol of the main-path instances (k=2, rayleigh,
-   f32 wire) counted by class with ``cuobjdump`` (``sass_symbol_loop``).
+   (time, and ``-Xptxas -v``'s registers, spills and the blocks an SM
+   they allow, per family K0 / K1 / K2; a build reused from an earlier
+   run in the same checkout reports the log saved with it), and the SASS
+   of one symbol of the main-path instances (k=2, rayleigh, f32 wire) of
+   all three counted by class with ``cuobjdump`` (``sass_symbol_loop``).
 3. K1 against its plain version on the card: k in {2,4,8} x fading in
    {rayleigh, awgn, block_rayleigh} x wire in {f32, bf16} at C=8,
    N=16,384; C=37 (across the kernels' client chunk of 32, no multiple
@@ -155,25 +156,29 @@ fails the run
    qwen2-1.5b at its published widths (1,777,088,000 params, bf16),
    ``TokenStream(vocab, 256, 8)``, 3 FedSGD steps at approx QPSK 10 dB
    Rayleigh on the kernel path, a world of one. Launch counters from 0
-   just before, read just after: K0 (= K1) once a step. Per step: the
-   loss (finite), forward and backward, uplink keys, K0 and apply (spans),
-   the row's int32 bit-error count beside 2**31, peak memory. Then step
-   0 by hand: ``init_params``' time and peak; its loss equal to the
-   trainer's; a perfect uplink leaving the gradient bit for bit and a
-   perfect step equal to SGD on it; ``transmit_pytree`` of step 0's
-   gradient under the trainer's key with the trainer's error count, tiles
-   0, 262,143, 262,144 (either side of the uint32 symbol counter's wrap)
-   and the last, padded one against the plain version on the card and the
-   CPU; K0's whole row timed and held against the plain version tile range
-   by tile range (0 differing words, errors equal modulo 2**32); a
-   2**28 + 1,024-word row likewise; one layered approx step at the
+   just before, read just after: K0 once a step, K1 and K2 never. Per
+   step: the loss (finite), forward and backward, uplink keys, K0 and
+   apply (spans), the row's int32 bit-error count beside 2**31, peak
+   memory. Then step 0 by hand: ``init_params``' time and peak; its loss
+   equal to the trainer's; a perfect uplink leaving the gradient bit for
+   bit and a perfect step equal to SGD on it; ``transmit_pytree`` of step
+   0's gradient under the trainer's key with the trainer's error count,
+   tiles 0, 262,143, 262,144 (either side of the uint32 symbol counter's
+   wrap) and the last, padded one against the plain version on the card
+   and the CPU; K0's whole row through K0's row kernel and through K1 at
+   C=1 (the path K0 took before it had a kernel of its own), timed in
+   turns old, new, new, old, each beside the issue-rate floor of its own
+   SASS, and both held against one pass of the plain version tile range
+   by tile range (0 differing words, errors equal modulo 2**32); a 2**28
+   + 1,024-word row through K0 likewise; one layered approx step at the
    trainer's ``--reduced`` widths (no launch).
 5j. The server (``repro_torch.launch.serve``'s ``main``) at full width,
    batch 4, 32 prompt + 16 generated tokens, full and ring caches:
    tokens a second and peak memory; then decode at the 32 prompt
    positions against ``forward`` (and the prefill step against its last
    position, bit for bit), within ``DECODE_RTOL`` and ``DECODE_ULPS``.
-6. Times at the main-path shape (C=100, N=22,528, QPSK, f32; K0 at C=1):
+6. Times at the main-path shape (C=100, N=22,528, QPSK, f32; K0 on the
+   first client's row, beside K1 at C=1 on it):
    kernel and plain version with CUDA events (median of single launches
    after a warm-up), each kernel's bound from bytes and operations, the
    floor its SASS implies at the card's issue rate, and the
@@ -214,7 +219,7 @@ import time  # noqa: E402
 ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
 EDGE = 1e-4  # demod pre-round proximity to a half-integer that may flip
-K1_SOURCE = "src/repro_torch/kernels/csrc/approx_channel.cu"
+KERNEL_SOURCE = "src/repro_torch/kernels/csrc/approx_channel.cu"
 K0_REPLACES = "src/repro/kernels/approx_channel.py:52"
 K1_REPLACES = "src/repro/kernels/approx_channel.py:405"
 K2_REPLACES = "src/repro/kernels/approx_channel.py:294"
@@ -349,8 +354,9 @@ SASS_CLASSES = (
 
 def sass_symbol_loop(lib, kernel: str):
     """Instructions of one symbol of the main-path instance of ``kernel``
-    ("k1" or "k2"; k=2, rayleigh, f32 wire) in the built library ``lib``,
-    by class: ``{"total": n, class: n, ...}``, or None without cuobjdump.
+    ("k0", "k1" or "k2"; k=2, rayleigh, f32 wire) in the built library
+    ``lib``, by class: ``{"total": n, class: n, ...}``, or None without
+    cuobjdump.
 
     The symbol loop is the innermost loop that holds a MUFU (the sqrt and
     divide seeds). Its hot path leaves out every forward branch over at
@@ -375,7 +381,8 @@ def sass_symbol_loop(lib, kernel: str):
         return None
     text = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
                           text=True, check=True).stdout
-    tag = {"k1": "k1_approx_channel_batch", "k2": "k2_approx_channel_aggregate"}
+    tag = {"k0": "k0_approx_channel_row", "k1": "k1_approx_channel_batch",
+           "k2": "k2_approx_channel_aggregate"}
     func = next(f for f in re.split(r"\n(?=\s*Function : )", text)
                 if tag[kernel] + "ILi2ELi0ELi32E" in f.lstrip().split("\n", 1)[0])
     ins = [(int(a, 16), t.strip()) for a, t in re.findall(
@@ -452,7 +459,7 @@ def phase_device(torch, device) -> tuple:
 
 
 def phase_build(device) -> dict:
-    """Builds the kernels; returns ``sass_symbol_loop`` of K1 and K2."""
+    """Builds the kernels; returns ``sass_symbol_loop`` of K0, K1 and K2."""
     _log("== phase 2: build")
     if device.type == "cpu":
         _log("build: skipped on the CPU (no nvcc; wrappers run the plain "
@@ -470,7 +477,8 @@ def phase_build(device) -> dict:
     summary, kernel = {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            kernel = "k1" if "k1_approx_channel_batch" in line else "k2"
+            kernel = next(k for k in ("k0", "k1", "k2")
+                          if f"{k}_approx_channel_" in line)
             summary.setdefault(kernel, {"n": 0, "regs": [], "spill": 0})
             summary[kernel]["n"] += 1
         elif kernel and "spill stores" in line:
@@ -480,12 +488,16 @@ def phase_build(device) -> dict:
             summary[kernel]["regs"].append(
                 int(line.split("Used")[1].split("registers")[0]))
     for kernel, st in sorted(summary.items()):
+        # 256-thread blocks, registers allocated 8 a thread at a time
+        blocks = min(8, 65536 // (-(-max(st['regs']) // 8) * 8 * 256))
         _log(f"  ptxas {kernel}: {st['n']} instances, registers "
              f"{min(st['regs'])}-{max(st['regs'])}, spill stores "
-             f"{st['spill']} bytes")
-    _check(set(summary) == {"k1", "k2"}, "ptxas reported no kernels")
+             f"{st['spill']} bytes; at most {blocks} blocks of 256 threads "
+             f"an SM by registers")
+    _check(set(summary) == {"k0", "k1", "k2"},
+           f"ptxas reported kernels {sorted(summary)}, not k0, k1 and k2")
     sass = {}
-    for kernel in ("k1", "k2"):
+    for kernel in ("k0", "k1", "k2"):
         counts = sass_symbol_loop(lib, kernel)
         if counts is None:
             _log("  SASS: not counted (no cuobjdump)")
@@ -2363,31 +2375,37 @@ def _flat_words(torch, leaves, lo: int, hi: int):
     return torch.cat(out)
 
 
-def _k0_vs_plain(torch, device, xp, out, seed, npow, gain, label):
-    """Every tile of K0's padded row ``out`` against the plain version of
+def _k0_vs_plain(torch, device, xp, outs, seed, npow, gain, label):
+    """Every tile of each padded row in ``outs`` (a dict of a kernel's
+    name to its output on ``xp``) against one pass of the plain version of
     ``xp``, chunk by chunk on the card (``first_tile``). Returns
-    ``(differing words, plain errors, max |err|, plain ms)``."""
+    ``(differing words, max |err|)`` (dicts by name), the plain version's
+    errors and its ms."""
     from repro_torch.kernels import ref
 
     tiles = xp.numel() // 1024
-    diff, errs, max_err, ms = 0, 0, 0.0, 0.0
+    diff = dict.fromkeys(outs, 0)
+    max_err = dict.fromkeys(outs, 0.0)
+    errs, ms = 0, 0.0
     for t in range(0, tiles, PLAIN_CHUNK_TILES):
         n = min(PLAIN_CHUNK_TILES, tiles - t)
         xs = xp[t * 1024:(t + n) * 1024]
         (got, e), dt = _timed(torch, device, lambda: ref.ref_approx_channel(
             xs, seed, npow, gain, first_tile=t))
         ms += dt
-        kk = out[t * 1024:(t + n) * 1024]
-        diff += int((_bits(torch, kk) != _bits(torch, got)).sum())
         errs += int(e)
-        dv = (kk - got).abs()
-        dv = dv[torch.isfinite(dv)]
-        if dv.numel():
-            max_err = max(max_err, float(dv.max()))
+        for name, out in outs.items():
+            kk = out[t * 1024:(t + n) * 1024]
+            diff[name] += int((_bits(torch, kk) != _bits(torch, got)).sum())
+            dv = (kk - got).abs()
+            dv = dv[torch.isfinite(dv)]
+            if dv.numel():
+                max_err[name] = max(max_err[name], float(dv.max()))
     _log(f"  {label}: {tiles:,} tiles against the plain version in chunks "
-         f"of {PLAIN_CHUNK_TILES}: {diff} differing words, plain errors "
-         f"{errs:,}, plain {ms:.1f} ms in all")
-    return diff, errs, max_err, ms
+         f"of {PLAIN_CHUNK_TILES}: differing words "
+         + ", ".join(f"{k} {v}" for k, v in diff.items())
+         + f"; plain errors {errs:,}, plain {ms:.1f} ms in all")
+    return diff, max_err, errs, ms
 
 
 def phase_trainer(torch, device, small: bool, sass: dict, mhz) -> tuple:
@@ -2428,8 +2446,8 @@ def phase_trainer(torch, device, small: bool, sass: dict, mhz) -> tuple:
     train.main(argv, on_step=on_step)
     counts = ac.launch_counts()
     want = n_steps if device.type == "cuda" else 0
-    _check(counts == {"k0": want, "k1": want, "k2": 0},
-           f"trainer launched {counts}, expected {want} K0 (= K1) launches")
+    _check(counts == {"k0": want, "k1": 0, "k2": 0},
+           f"trainer launched {counts}, expected {want} K0 launches")
     prev = 0
     for i, r in enumerate(records):
         ph = r["phase_s"]
@@ -2535,18 +2553,29 @@ def phase_trainer(torch, device, small: bool, sass: dict, mhz) -> tuple:
              f"on the CPU")
     del hat, hat_leaves
 
-    # (d) The same row through the kernel wrapper, timed; then every tile
-    # against the plain version, chunk by chunk.
+    # (d) The same row through K0's row kernel and through K1 at C=1 (the
+    # path K0 took before it had its own kernel), timed in turns old, new,
+    # new, old; then every tile of both against one pass of the plain
+    # version, chunk by chunk.
     flat = torch.cat([v.reshape(-1) for v in g_leaves])
     del g32, g_leaves
     xp = ops._tiled(flat, 32, 1024)
     del flat
     kw = dict(bits_per_symbol=2, fading="rayleigh", clamp_mask=0xBFFFFFFF,
               word_bits=32)
-    k0_ms = clock.median_ms(
-        lambda: ac.approx_channel_kernel(xp, seed, npow, gain, **kw),
-        3 if device.type == "cuda" else 1, warmup=1)
-    out, errs = ac.approx_channel_kernel(xp, seed, npow, gain, **kw)
+    one = [t.reshape(1) for t in (seed, npow, gain)]
+    new = lambda: ac.approx_channel_kernel(  # noqa: E731
+        xp, seed, npow, gain, **kw)
+    old = lambda: ac.approx_channel_batch_kernel(  # noqa: E731
+        xp[None], *one, **kw)
+    reps = 3 if device.type == "cuda" else 1
+    t_old = [clock.median_ms(old, reps, warmup=1)]
+    t_new = [clock.median_ms(new, reps, warmup=1)]
+    t_new.append(clock.median_ms(new, reps, warmup=1))
+    t_old.append(clock.median_ms(old, reps, warmup=1))
+    k0_ms, k1c1_ms = min(t_new), min(t_old)
+    out, errs = new()
+    out1, errs1 = old()
     # The count is int32 in both packages (the kernel's atomicAdd, the
     # reference's sum): it wraps past 2**31 - 1, and the TxStats float32
     # rounds it; compare modulo 2**32 and through float32.
@@ -2554,28 +2583,35 @@ def phase_trainer(torch, device, small: bool, sass: dict, mhz) -> tuple:
     _check(float(torch.tensor(errs_row, dtype=torch.float32))
            == records[0]["errors"],
            f"K0 row errors {errs_row} != step 0's {records[0]['errors']}")
-    diff, errs_plain, max_err, plain_ms = _k0_vs_plain(
-        torch, device, xp, out, seed, npow, gain, f"K0 row of {n:,} words")
-    _check(diff == 0 and (errs_plain - int(errs)) % 2**32 == 0,
-           f"K0 row: {diff} words differ, errors {int(errs)} vs plain "
-           f"{errs_plain}")
+    diff, max_errs, errs_plain, plain_ms = _k0_vs_plain(
+        torch, device, xp, {"k0": out, "k1 at C=1": out1[0]}, seed, npow,
+        gain, f"K0 and K1 at C=1, row of {n:,} words")
+    for name, e in (("k0", errs), ("k1 at C=1", errs1[0])):
+        _check(diff[name] == 0 and (errs_plain - int(e)) % 2**32 == 0,
+               f"{name} row: {diff[name]} words differ, errors {int(e)} vs "
+               f"plain {errs_plain}")
+    max_err = max_errs["k0"]
     _log(f"  K0 row bit errors: {errs_plain:,} by the plain version (Python "
-         f"int); the kernel's int32 count {int(errs):,} "
+         f"int); the kernels' int32 count {int(errs):,} "
          f"({'wrapped past' if errs_plain >= 2**31 else 'under'} 2**31 = "
          f"{2**31:,}); BER {errs_plain / (tiles * 1024 * 32):.4f}")
-    del xp, out
+    del xp, out, out1
     b = _bound(1, tiles * 1024, 2, "rayleigh", 32, "k1")
-    line = (f"  K0 at N = {n:,} ({tiles:,} tiles, grid {tiles * 32:,} "
-            f"blocks): {k0_ms:.2f} ms (median of 3), plain {plain_ms:.1f} ms;"
-            f" bound {b['bound_ms']:.2f} ms ({b['bound_by']}: "
-            f"{b['bytes'] / 1e9:.2f} GB -> {b['bytes_ms']:.2f} ms, "
-            f"{b['ops'] / 1e12:.2f} T ops -> {b['ops_ms']:.2f} ms)")
-    if sass.get("k1") and mhz:
+    _log(f"  at N = {n:,} ({tiles:,} tiles): K0's row kernel {k0_ms:.2f} ms "
+         f"(runs {t_new[0]:.2f}, {t_new[1]:.2f}; median of {reps}), K1 at "
+         f"C=1 {k1c1_ms:.2f} ms (runs {t_old[0]:.2f}, {t_old[1]:.2f}), K0 / "
+         f"K1 {k0_ms / k1c1_ms:.3f}; plain {plain_ms:.1f} ms; bound "
+         f"{b['bound_ms']:.2f} ms ({b['bound_by']}: "
+         f"{b['bytes'] / 1e9:.2f} GB -> {b['bytes_ms']:.2f} ms, "
+         f"{b['ops'] / 1e12:.2f} T ops -> {b['ops_ms']:.2f} ms)")
+    if sass and mhz:
         sms = torch.cuda.get_device_properties(device).multi_processor_count
-        floor = _issue_floor_ms(tiles * 1024 * 16, sass["k1"], sms, mhz)
-        line += (f"; issue-rate floor {floor:.2f} ms ({sass['k1']['total']} "
-                 f"instructions a symbol)")
-    _log(line)
+        for name, tag, ms in (("K0", "k0", k0_ms), ("K1 at C=1", "k1",
+                                                     k1c1_ms)):
+            floor = _issue_floor_ms(tiles * 1024 * 16, sass[tag], sms, mhz)
+            _log(f"  {name}: issue-rate floor {floor:.2f} ms "
+                 f"({sass[tag]['total']} instructions a symbol of "
+                 f"{tag}'s SASS); kernel at {floor / ms:.0%} of it")
 
     # (e) A row of 2**28 + 1,024 words (tile 262,144 sees tile 0's draws:
     # the uint32 symbol counter wraps there, as in the reference).
@@ -2584,11 +2620,12 @@ def phase_trainer(torch, device, small: bool, sass: dict, mhz) -> tuple:
     xw = torch.randn(nw, generator=g, device=device) * 1e-3
     xwp = ops._tiled(xw, 32, 1024)
     outw, errsw = ac.approx_channel_kernel(xwp, seed, npow, gain, **kw)
-    diffw, errs_pw, _, _ = _k0_vs_plain(torch, device, xwp, outw, seed, npow,
-                                        gain, f"K0 row of {nw:,} words")
-    _check(diffw == 0 and errs_pw == int(errsw),
-           f"K0 2**28 row: {diffw} words differ, errors {int(errsw)} vs "
-           f"plain {errs_pw}")
+    diffw, _, errs_pw, _ = _k0_vs_plain(torch, device, xwp, {"k0": outw},
+                                        seed, npow, gain,
+                                        f"K0 row of {nw:,} words")
+    _check(diffw["k0"] == 0 and errs_pw == int(errsw),
+           f"K0 2**28 row: {diffw['k0']} words differ, errors {int(errsw)} "
+           f"vs plain {errs_pw}")
     del xw, xwp, outw
 
     # (f) One layered approx step (no kernel) at the trainer's --reduced
@@ -2603,7 +2640,8 @@ def phase_trainer(torch, device, small: bool, sass: dict, mhz) -> tuple:
            f"layered step: loss {lr}, launches {ac.launch_counts()}")
     _log(f"  layered approx step (--reduced): loss {lr:.4f}, no launches")
     _log(f"  phase 5i: {time.perf_counter() - t_phase:.1f} s")
-    row = {"name": "k0", "route": "cuda", "source": K1_SOURCE,
+    row = {"name": "k0_approx_channel_row", "route": "cuda",
+           "source": KERNEL_SOURCE,
            "replaces": K0_REPLACES, "launches": counts["k0"],
            "max_abs_err": max_err, "ms": k0_ms, "plain_ms": plain_ms,
            "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
@@ -2742,8 +2780,7 @@ def phase_times(torch, device, small: bool, launches: dict, sass: dict,
              f"({b['bound_by']}: {b['bytes'] / 1e6:.2f} MB -> "
              f"{b['bytes_ms']:.4f} ms, {b['ops'] / 1e9:.2f} G ops -> "
              f"{b['ops_ms']:.4f} ms); library call: n/a")
-        # K0 runs K1's instance, one client
-        counts = sass.get("k1" if name == "k0" else name)
+        counts = sass.get(name)
         if counts and mhz:
             symbols = (1 if name == "k0" else c) * n * 16
             sms = torch.cuda.get_device_properties(device).multi_processor_count
@@ -2752,12 +2789,19 @@ def phase_times(torch, device, small: bool, launches: dict, sass: dict,
                  f" instructions x {symbols / 1e6:.2f} M symbols over {sms} "
                  f"SMs x 128 lanes at {mhz:.0f} MHz); kernel at "
                  f"{floor / ms:.0%} of it")
+        if name == "k0":
+            # K1 at C=1 on the same row, the path K0 took before it had
+            # its own kernel
+            one = [t.reshape(1) for t in (s0, p0, g0)]
+            t1 = clock.median_ms(lambda: ac.approx_channel_batch_kernel(
+                x0[None], *one, **kw), reps)
+            _log(f"  k1 at C=1 on K0's row: {t1:.4f} ms")
         if name == "k0" and k0_row is not None:
             # the main path's K0 is the trainer's row (phase 5i)
             rows.append(k0_row)
             continue
         rows.append({
-            "name": name, "route": "cuda", "source": K1_SOURCE,
+            "name": name, "route": "cuda", "source": KERNEL_SOURCE,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],

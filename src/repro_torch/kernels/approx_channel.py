@@ -1,4 +1,4 @@
-"""Wrappers of the CUDA approximate-channel kernels (K1, K2; K0 via K1).
+"""Wrappers of the CUDA approximate-channel kernels (K0, K1, K2).
 
 Counterpart of ``repro.kernels.approx_channel``, whose Pallas kernels
 become hand-written CUDA C++ for Hopper in ``csrc/approx_channel.cu``:
@@ -9,7 +9,7 @@ port                               reference (Pallas, TPU)
 ``approx_channel_batch_kernel``    ``approx_channel_batch_pallas`` (K1)
 ``approx_channel_batch_aggregate_  ``approx_channel_batch_aggregate_pallas``
 kernel``                           (K2)
-``approx_channel_kernel``          ``approx_channel_pallas`` (K0: K1 at C=1)
+``approx_channel_kernel``          ``approx_channel_pallas`` (K0)
 =================================  ==========================================
 
 A tensor on the CPU goes to the plain PyTorch version in
@@ -17,7 +17,10 @@ A tensor on the CPU goes to the plain PyTorch version in
 current stream or raises — there is no fallback. Each wrapper checks
 device, dtype, shape and contiguity, allocates its outputs, raises if the
 launch reports an error, and adds one to its ``launches`` counter each
-time it launches its kernel (and nowhere else).
+time it launches its kernel (and nowhere else). The reference computes K0
+as K1 at C=1; the port gives it a kernel of its own for one long row
+(``k0_approx_channel_row``), with the same bits, so a K0 call counts in
+K0's counter alone.
 """
 
 from __future__ import annotations
@@ -49,19 +52,32 @@ _F = ctypes.c_float
 _U = ctypes.c_uint32
 
 
+# ctypes signatures of the extern "C" entries of csrc/approx_channel.cu:
+# c_void_p for every pointer and the stream (a plain int would cut a
+# pointer to 32 bits). Each returns cudaGetLastError() as an int.
+SIGNATURES = {
+    "repro_k0_approx_channel_row": [
+        _P, _P, _P, _P, _P, _P,         # x, out, errs, seed, npow, gain
+        _I, _I, _I, _I, _I, _I,         # N, k, fading, wb, bw, fade_block
+        _U, _F, _F, _P],                # clamp, amp, inv, stream
+    "repro_k1_approx_channel_batch": [
+        _P, _P, _P, _P, _P, _P,         # x, out, errs, seeds, npow, gains
+        _I, _I, _I, _I, _I, _I, _I,     # C, N, k, fading, wb, bw, fade_block
+        _U, _I, _F, _F, _P],            # clamp, num_active, amp, inv, stream
+    "repro_k2_approx_channel_aggregate": [
+        _P, _P, _P, _P, _P, _P, _P,     # x, agg, errs, seeds, npow, gains, w
+        _I, _I, _I, _I, _I, _I, _I,     # C, N, k, fading, wb, bw, fade_block
+        _U, _I, _I, _F, _F, _P],        # clamp, num_active, valid, amp, inv,
+}                                       # stream
+
+
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = build_lib.load(_SOURCE)
-    lib.repro_k1_approx_channel_batch.argtypes = [
-        _P, _P, _P, _P, _P, _P,            # x, out, errs, seeds, npow, gains
-        _I, _I, _I, _I, _I, _I, _I,        # C, N, k, fading, wb, bw, fade_block
-        _U, _I, _F, _F, _P]                # clamp, num_active, amp, inv, stream
-    lib.repro_k1_approx_channel_batch.restype = _I
-    lib.repro_k2_approx_channel_aggregate.argtypes = [
-        _P, _P, _P, _P, _P, _P, _P,        # x, agg, errs, seeds, npow, gains, w
-        _I, _I, _I, _I, _I, _I, _I,        # C, N, k, fading, wb, bw, fade_block
-        _U, _I, _I, _F, _F, _P]            # clamp, num_active, valid, amp, inv,
-    lib.repro_k2_approx_channel_aggregate.restype = _I  # stream
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = _I
     return lib
 
 
@@ -256,24 +272,60 @@ def approx_channel_batch_aggregate_kernel(
 approx_channel_batch_aggregate_kernel.launches = 0
 
 
-def approx_channel_kernel(x, seed, noise_power, large_scale_gain, **kw):
-    """K0: one client's ``(N,)`` payload, as a C=1 call into K1.
+def approx_channel_kernel(
+    x: torch.Tensor,
+    seed,
+    noise_power,
+    large_scale_gain,
+    *,
+    bits_per_symbol: int = 2,
+    fading: str = "rayleigh",
+    fade_block: int = 64,
+    clamp_mask: int = 0xBFFFFFFF,
+    block_words: int = 1024,
+    word_bits: int = 32,
+):
+    """K0: one client's ``(N,)`` payload in one launch of its own row kernel.
 
-    A CUDA call counts one launch here and one in K1's counter.
-    Returns ``(x_hat (N,), bit_errors () int32)``.
+    ``seed`` is a ``uint32`` value (an int or a one-element tensor),
+    ``noise_power`` and ``large_scale_gain`` floats or one-element tensors.
+    The same received words and int32 error count as K1's row 0 of a C=1
+    batch, so as the plain version; a CUDA call counts one launch of K0
+    and none of K1. Returns ``(x_hat (N,) wire dtype, bit_errors () int32)``;
+    a row over ``MAX_ROW_WORDS`` raises ``ValueError`` on any device.
     """
+    _check_row(x)
+    if x.device.type == "cpu":
+        return ref_lib.ref_approx_channel(
+            x, seed, noise_power, large_scale_gain,
+            bits_per_symbol=bits_per_symbol, fading=fading,
+            fade_block=fade_block, clamp_mask=clamp_mask,
+            block_words=block_words, word_bits=word_bits)
     dev = x.device
-    x_hat, errs = approx_channel_batch_kernel(
-        x[None, :].contiguous(),
-        torch.as_tensor(seed, device=dev).reshape(1),
-        torch.as_tensor(noise_power, dtype=torch.float32,
-                        device=dev).reshape(1),
-        torch.as_tensor(large_scale_gain, dtype=torch.float32,
-                        device=dev).reshape(1),
-        **kw)
-    if dev.type == "cuda":
-        approx_channel_kernel.launches += 1
-    return x_hat[0], errs[0]
+    row = x[None, :].contiguous()
+    seeds = _seed_bits(torch.as_tensor(seed, device=dev).reshape(1))
+    npow = torch.as_tensor(noise_power, dtype=torch.float32,
+                           device=dev).reshape(1)
+    gain = torch.as_tensor(large_scale_gain, dtype=torch.float32,
+                           device=dev).reshape(1)
+    _check_common(row, seeds, npow, gain, bits_per_symbol=bits_per_symbol,
+                  fading=fading, block_words=block_words,
+                  word_bits=word_bits, fade_block=fade_block)
+    n = row.shape[1]
+    out = torch.empty_like(row[0])
+    # Blocks add their counts into errs, so it starts at 0.
+    errs = torch.zeros((1,), dtype=torch.int32, device=dev)
+    amp, inv = _constellation(bits_per_symbol)
+    rc = _library().repro_k0_approx_channel_row(
+        row.data_ptr(), out.data_ptr(), errs.data_ptr(), seeds.data_ptr(),
+        npow.data_ptr(), gain.data_ptr(), n, bits_per_symbol,
+        _FADING[fading], word_bits, block_words, fade_block,
+        clamp_mask & 0xFFFFFFFF, amp, inv,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"K0 launch failed: cudaError {rc}")
+    approx_channel_kernel.launches += 1
+    return out, errs[0]
 
 
 approx_channel_kernel.launches = 0
@@ -281,7 +333,8 @@ approx_channel_kernel.launches = 0
 
 def launch_counts() -> dict:
     """Launches of each kernel since the last reset:
-    ``{"k0": n, "k1": n, "k2": n}`` (a K0 launch is also a K1 launch)."""
+    ``{"k0": n, "k1": n, "k2": n}``, each counting its own kernel (a K0
+    call launches K0's row kernel, not K1)."""
     return {"k0": approx_channel_kernel.launches,
             "k1": approx_channel_batch_kernel.launches,
             "k2": approx_channel_batch_aggregate_kernel.launches}

@@ -1,6 +1,6 @@
 // Approximate-channel uplink kernels for Hopper (sm_90a).
 //
-// Replaces the two TPU kernels of src/repro/kernels/approx_channel.py:
+// Replaces the three TPU kernels of src/repro/kernels/approx_channel.py:
 //   K1  k1_approx_channel_batch   <- approx_channel_batch_pallas (:405)
 //       (client, tile) grid over a (C, N) payload: bitcast -> MSB-first
 //       k-bit symbols -> in-tile interleave -> Gray QAM -> counter-RNG
@@ -9,7 +9,9 @@
 //   K2  k2_approx_channel_aggregate <- approx_channel_batch_aggregate_pallas
 //       (:294): K1's chain, then agg += w[c] * x_hat[c] in client order;
 //       the (C, N) received payload never reaches device memory.
-// (approx_channel_pallas, :52, is K1 at C = 1; the wrapper calls K1.)
+//   K0  k0_approx_channel_row     <- approx_channel_pallas (:52)
+//       K1's chain over one client's (N,) row. The reference computes it
+//       as K1 at C = 1; here it has a kernel of its own (below).
 //
 // What bounds them on an H100 SXM. At the main-path shape (C = 100
 // clients, N = 22,528 words, QPSK, f32 wire) K1 reads 9.0 MB and writes
@@ -39,7 +41,7 @@
 // - one sincosf replaces cosf and sinf of the same angle (nvcc already
 //   shared their fast-path reduction, not the large-argument one).
 //
-// Layout. Both kernels run blocks of 32 words (threadIdx.x) x 8 client
+// Layout. K1 and K2 run blocks of 32 words (threadIdx.x) x 8 client
 // slots (threadIdx.y): a warp is one slot, so it lies in one client row
 // at a time, and each client's error count is warp-reduced, then added
 // with an integer atomicAdd (exact in any order). Slot g takes clients
@@ -62,6 +64,45 @@
 // 67% of the card's slots) are all resident at once. They spread 6 or 5
 // to an SM, so K2 takes about 6 / 5.33 of the time its work needs.
 //
+// K0, one long row. The LLM trainer sends its whole gradient as one row:
+// qwen2-1.5b's 1,777,088,000 words (83% of the int row index). There K0
+// reads and writes 14.22 GB, 4.24 ms at 3.35 TB/s, and runs 2.84e10
+// symbols, 5.27 T operations, 78.59 ms at the float32 peak: operations
+// bound it, and in practice the issue rate of its SASS. Run as K1 at
+// C = 1, it wasted most of the card: a block filled the shared hash table
+// for its 32 words (a store, a barrier, two 8-byte loads a symbol), then
+// slots 1-7 found no client and one warp of eight ran the chain, so an SM
+// held 6 working warps, 1.5 a scheduler, to hide a chain of logf,
+// sincosf, sqrt and divide; 55.5 M blocks each added one atomic to the
+// same word. With one client there is nothing to share, so the row
+// kernel drops the table and the slots:
+// - one thread per word, every warp working: blocks of 256 consecutive
+//   words, each thread runs its word's WB / K symbols through
+//   channel_symbol with the four inner hash halves computed in registers
+//   (symbol_hash); the symbol index is BlockWords' uint32 formula, so it
+//   wraps at tile 262,144 as the reference's does;
+// - a persistent grid of min(ceil(N / 256), SMs x resident blocks)
+//   blocks walks the row in grid strides, with a 64-bit word index; a
+//   row of fewer than 8 warps an SM gets blocks of fewer warps, so that
+//   it still reaches every SM (at N = 22,528, 118 blocks of 6 warps, not
+//   88 of 8);
+// - each thread sums its words' flips in a uint32, the block reduces
+//   them (warp reduce, then shared memory) and adds one atomic: uint32
+//   addition is exact modulo 2**32, so the int32 count equals K1's and
+//   the plain version's, wrapped or not;
+// - __launch_bounds__(256, 6) caps it at 40 registers. Measured (-Xptxas
+//   -v): 33-40 registers over the 18 instances, 39 for the main-path one,
+//   no spills, 32 bytes of shared memory; so 6 blocks, 48 working warps
+//   (12 a scheduler, against 1.5), sit on each SM.
+// Its symbol loop is 302 SASS instructions (267 for K1: the four inner
+// fmix32s and their index are now in the loop, the two shared loads
+// gone), an issue-rate floor of 256.7 ms at the LLM row. On an H100 80GB
+// HBM3 at 700 W (chip_smoke phase 5i) it runs there at 86% of that rate,
+// 297.7 ms against 347.9 ms for K1 at C = 1 in the same run. A row
+// shorter than the card is bound by one thread's chain of symbols
+// instead, which K1's shared table shortens: at N = 22,528 (phase 6)
+// neither is reliably faster, 0.12-0.21 ms each.
+//
 // Arithmetic matches the plain PyTorch version (kernels/ref.py) bit for
 // bit: every multiply, add and divide is an explicit round-to-nearest
 // intrinsic (__fmul_rn, __fadd_rn, __fdiv_rn), which the compiler never
@@ -70,6 +111,7 @@
 // compute what sincosf computes); hashes and symbol indices are uint32 so
 // they wrap as the reference's do. Never build with --use_fast_math.
 
+#include <algorithm>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -83,7 +125,7 @@ constexpr float kSqrtHalf = 0x1.6a09e6p-1f;  // float32(sqrt(0.5))
 
 enum Fading { kRayleigh = 0, kAwgn = 1, kBlockRayleigh = 2 };
 
-// Both kernels: a block is kWords words x kSlots client slots; each slot
+// K1 and K2: a block is kWords words x kSlots client slots; each slot
 // runs kPerSlot clients of a chunk of kChunk, one after another.
 constexpr int kWords = 32;   // threadIdx.x: one warp per slot
 constexpr int kSlots = 8;    // threadIdx.y
@@ -92,6 +134,10 @@ constexpr int kChunk = kSlots * kPerSlot;
 constexpr int kThreads = kWords * kSlots;
 constexpr int kMinBlocks = 6;     // per SM: caps registers at 40
 constexpr int kMaxSymbols = 16;   // symbols per word: 32 / k, k >= 2
+// K0: a block is up to kRowThreads consecutive words of the row, one a
+// thread.
+constexpr int kRowThreads = 256;
+constexpr int kRowMinBlocks = 6;  // per SM: caps registers at 40
 
 __device__ __forceinline__ uint32_t fmix32(uint32_t x) {
   x ^= x >> 16;
@@ -402,6 +448,104 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   if (blk.slot == 0 && blk.in_row) agg[blk.i] = acc;
 }
 
+// K0: one client's row, one thread per word. A block is blockDim.x
+// (at most kRowThreads) consecutive words and walks the row in steps of
+// the whole grid; each thread computes its symbols' hash halves in
+// registers and sums its words' flips, and the block adds its total with
+// one atomicAdd.
+template <int K, int FADING, int WB>
+__global__ void __launch_bounds__(kRowThreads, kRowMinBlocks)
+    k0_approx_channel_row(const typename Wire<WB>::T* __restrict__ x,
+                          typename Wire<WB>::T* __restrict__ out,
+                          int* __restrict__ errs,
+                          const uint32_t* __restrict__ seed,
+                          const float* __restrict__ npow,
+                          const float* __restrict__ gain, Params p) {
+  constexpr int S = WB / K;
+  __shared__ uint32_t warp_flips[kRowThreads / 32];
+  const Link link = load_link(seed, npow, gain, 0);
+  const uint32_t bw = static_cast<uint32_t>(p.bw);
+  // 64-bit: near MAX_ROW_WORDS, i + stride overflows an int.
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  uint32_t flips = 0;  // wraps modulo 2**32, as the int32 count does
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                   threadIdx.x;
+       i < p.n; i += stride) {
+    // interleave: symbol s of word i has index base + s * bw + w (uint32,
+    // so it wraps at tile 262,144 as the reference's does)
+    const uint32_t iu = static_cast<uint32_t>(i);
+    const uint32_t tile = iu / bw;
+    const uint32_t w = iu % bw;
+    const uint32_t base = tile * (bw * S) + w;
+    const uint32_t u = x[i];
+    uint32_t u_hat = 0;
+#pragma unroll 1
+    for (int s = 0; s < S; ++s) {
+      const int shift = WB - K * (s + 1);
+      const uint32_t sym = (u >> shift) & ((1u << K) - 1u);
+      u_hat |= channel_symbol<K, FADING>(
+                   sym, link.seed,
+                   symbol_hash<FADING>(base + static_cast<uint32_t>(s) * bw,
+                                       p.fade_block),
+                   link.nscale, link.sg, p.amp, p.inv)
+               << shift;
+    }
+    u_hat &= p.clamp;
+    out[i] = static_cast<typename Wire<WB>::T>(u_hat);
+    flips += __popc(u ^ u_hat);
+  }
+  flips = __reduce_add_sync(0xffffffffu, flips);
+  if ((threadIdx.x & 31) == 0) warp_flips[threadIdx.x >> 5] = flips;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    uint32_t total = 0;
+    for (unsigned j = 0; j < blockDim.x / 32; ++j) total += warp_flips[j];
+    if (total != 0) atomicAdd(reinterpret_cast<unsigned int*>(errs), total);
+  }
+}
+
+// The card's SMs and the kRowThreads-thread blocks of one K0 instance an
+// SM holds, queried at the instance's first launch and kept (the cards of
+// one host are alike).
+struct RowOccupancy {
+  int sms, per_sm;
+};
+
+template <int K, int FADING, int WB>
+RowOccupancy row_occupancy() {
+  static const RowOccupancy occ = [] {
+    RowOccupancy o{0, 0};
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&o.sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &o.per_sm, k0_approx_channel_row<K, FADING, WB>, kRowThreads, 0);
+    return o;
+  }();
+  return occ;
+}
+
+// A persistent grid of min(blocks, SMs x blocks an SM). A row of fewer
+// than kRowThreads / 32 warps an SM gets blocks of fewer warps, so that it
+// still spreads over every SM.
+template <int K, int FADING, int WB>
+void launch_k0(const void* x, void* out, int* errs, const uint32_t* seed,
+               const float* npow, const float* gain, const Params& p,
+               cudaStream_t stream) {
+  using T = typename Wire<WB>::T;
+  const RowOccupancy occ = row_occupancy<K, FADING, WB>();
+  const int64_t sms = std::max(occ.sms, 1);
+  const int64_t warps = (static_cast<int64_t>(p.n) + 31) / 32;
+  const int threads = 32 * static_cast<int>(std::clamp<int64_t>(
+                               (warps + sms - 1) / sms, 1, kRowThreads / 32));
+  const int64_t blocks = (static_cast<int64_t>(p.n) + threads - 1) / threads;
+  const int grid = static_cast<int>(
+      std::min<int64_t>(blocks, static_cast<int64_t>(occ.sms) * occ.per_sm));
+  k0_approx_channel_row<K, FADING, WB><<<grid, threads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<T*>(out), errs, seed, npow, gain,
+      p);
+}
+
 template <int K, int FADING, int WB>
 void launch_k1(const void* x, void* out, int* errs, const uint32_t* seeds,
                const float* npow, const float* gains, int clients,
@@ -452,6 +596,14 @@ bool dispatch(int k, int fading, int word_bits, Args&&... args) {
 }
 
 template <int K, int FADING, int WB>
+struct K0Launcher {
+  template <typename... Args>
+  static void run(Args&&... args) {
+    launch_k0<K, FADING, WB>(static_cast<Args&&>(args)...);
+  }
+};
+
+template <int K, int FADING, int WB>
 struct K1Launcher {
   template <typename... Args>
   static void run(Args&&... args) {
@@ -473,6 +625,19 @@ struct K2Launcher {
 // returns cudaGetLastError() (cudaErrorInvalidValue for an unsupported
 // k / fading / word_bits). Outputs are allocated by the caller; errs must
 // be zeroed, since blocks add their counts into it.
+extern "C" int repro_k0_approx_channel_row(
+    const void* x, void* out, int* errs, const uint32_t* seed,
+    const float* npow, const float* gain, int n, int k, int fading,
+    int word_bits, int bw, int fade_block, uint32_t clamp, float amp,
+    float inv, void* stream) {
+  const Params p{n, bw, fade_block, clamp, 1, amp, inv};
+  if (!dispatch<K0Launcher>(k, fading, word_bits, x, out, errs, seed, npow,
+                            gain, p, static_cast<cudaStream_t>(stream))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 extern "C" int repro_k1_approx_channel_batch(
     const void* x, void* out, int* errs, const uint32_t* seeds,
     const float* npow, const float* gains, int clients, int n, int k,

@@ -266,8 +266,9 @@ def test_launch_counters_move_once_per_launch(cuda_device):
     TAC.approx_channel_batch_kernel(x.cpu(), seeds.cpu(), npow.cpu(),
                                     gains.cpu())
     assert TAC.launch_counts() == {"k0": 0, "k1": 1, "k2": 1}
+    # K0 launches its own row kernel: its counter moves, K1's does not
     TAC.approx_channel_kernel(x[1].contiguous(), 7, float(npow[1]), G0)
-    assert TAC.launch_counts() == {"k0": 1, "k1": 2, "k2": 1}
+    assert TAC.launch_counts() == {"k0": 1, "k1": 1, "k2": 1}
 
 
 @pytest.mark.cuda
@@ -283,6 +284,12 @@ def test_wrappers_reject_bad_inputs(cuda_device):
     with pytest.raises(ValueError, match="weights"):
         TAC.approx_channel_batch_aggregate_kernel(x, seeds, npow, gains,
                                                   w[:2])
+    TAC.reset_launch_counts()
+    with pytest.raises(ValueError, match="float32"):
+        TAC.approx_channel_kernel(x[0].double(), 7, 0.0, G0)
+    with pytest.raises(ValueError, match="block_words"):
+        TAC.approx_channel_kernel(x[0, :1000].contiguous(), 7, 0.0, G0)
+    assert TAC.launch_counts() == {"k0": 0, "k1": 0, "k2": 0}
 
 
 @pytest.mark.cuda
@@ -891,8 +898,8 @@ def test_metro_rush_buffered_card_vs_cpu(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [2048, 2048 + 700])
 def test_k0_short_rows_match_plain(cuda_device, n):
-    """K0 (K1 at C=1) on a two-tile row and a padded three-tile row, with
-    noise: the plain version's words and errors bit for bit."""
+    """K0 on a two-tile row and a padded three-tile row, with noise: the
+    plain version's words and errors bit for bit."""
     g = torch.Generator().manual_seed(n)
     x = (torch.rand(n, generator=g) * 1.8 - 0.9).to(cuda_device)
     seed = torch.tensor(123456789, dtype=torch.int64)
@@ -908,6 +915,106 @@ def test_k0_short_rows_match_plain(cuda_device, n):
     assert torch.equal(_bits(got.cpu()), _bits(want[:n]))
     assert int(errs) == int(werrs) - int(TO._padding_errors(
         want[None, n:], 32)[0]) and int(errs) > 0
+
+
+def _k0_row(device, n, word_bits=32, seed=0):
+    """A noisy link and an ``(n,)`` payload in [-0.9, 0.9] on ``device``."""
+    g = torch.Generator().manual_seed(seed)
+    x = (torch.rand(n, generator=g) * 1.8 - 0.9).to(
+        torch.bfloat16 if word_bits == 16 else torch.float32)
+    return (x.to(device), torch.tensor(2**32 - 12345, dtype=torch.int64),
+            torch.tensor(G0 / 10, device=device),
+            torch.tensor(G0, device=device))
+
+
+def _k0_against_plain(x, seed, npow, gain, **kw):
+    """K0's row kernel on ``x`` and the plain version on the card: one K0
+    launch, no K1 launch, the same words bit for bit, the same int32
+    errors."""
+    before = TAC.launch_counts()
+    got, errs = TAC.approx_channel_kernel(x, seed, npow, gain, **kw)
+    after = TAC.launch_counts()
+    assert after == dict(before, k0=before["k0"] + 1)
+    want, werrs = TR.ref_approx_channel(x, seed.to(x.device), npow, gain,
+                                        **kw)
+    assert torch.equal(_bits(got), _bits(want))
+    assert errs.dtype == torch.int32 and int(errs) == int(werrs) > 0
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("word_bits", [32, 16])
+@pytest.mark.parametrize("fading", ["rayleigh", "awgn", "block_rayleigh"])
+@pytest.mark.parametrize("k", [2, 4, 8])
+def test_k0_row_kernel_matches_plain(cuda_device, k, fading, word_bits):
+    """Every (k, fading, word_bits) instance of K0's row kernel on a
+    three-tile row at 10 dB against the plain version, and against K1's
+    row 0 of the same payload as a C=1 batch."""
+    x, seed, npow, gain = _k0_row(cuda_device, 3 * 1024, word_bits, seed=k)
+    kw = dict(bits_per_symbol=k, fading=fading, word_bits=word_bits,
+              fade_block=48,
+              clamp_mask=0xBFFF if word_bits == 16 else 0xBFFFFFFF)
+    got = _k0_against_plain(x, seed, npow, gain, **kw)
+    via_k1, _ = TAC.approx_channel_batch_kernel(
+        x[None], seed.reshape(1).to(cuda_device), npow.reshape(1),
+        gain.reshape(1), **kw)
+    assert torch.equal(_bits(got), _bits(via_k1[0]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tiles,block_words", [(1, 1024), (7, 1024),
+                                               (7, 100), (5, 300),
+                                               (22, 1024)])
+def test_k0_row_lengths_around_the_grid(cuda_device, tiles, block_words):
+    """Rows of 1, 7 and 22 tiles and rows of tiles of 100 and 300 words:
+    short rows get blocks of fewer than 256 threads (one warp at 1 tile,
+    six at 22 tiles of 1,024 words, the main path's width), and the last
+    block is partial where the words are no multiple of it; every word is
+    reached once."""
+    x, seed, npow, gain = _k0_row(cuda_device, tiles * block_words,
+                                  seed=tiles)
+    _k0_against_plain(x, seed, npow, gain, block_words=block_words)
+
+
+@pytest.mark.cuda
+def test_k0_long_padded_row_through_ops(cuda_device):
+    """1,000 tiles plus a 300-word tail through ``ops.approx_channel``:
+    more blocks than the persistent grid holds, so every block walks the
+    row in grid strides and the last stride is ragged; the padding's
+    errors are subtracted as on the CPU."""
+    n = 1000 * 1024 + 300
+    x, seed, npow, gain = _k0_row(cuda_device, n, seed=1000)
+    before = TAC.launch_counts()
+    got, errs = TO.approx_channel(x, seed.to(cuda_device), npow, gain)
+    assert TAC.launch_counts() == dict(before, k0=before["k0"] + 1)
+    want, werrs = TR.ref_approx_channel(
+        torch.nn.functional.pad(x, (0, 1024 - 300)), seed.to(cuda_device),
+        npow, gain)
+    assert torch.equal(_bits(got), _bits(want[:n]))
+    assert int(errs) == int(werrs) - int(TO._padding_errors(
+        want[None, n:], 32)[0])
+
+
+@pytest.mark.cuda
+def test_k0_row_across_the_counter_wrap(cuda_device):
+    """A row of 262,145 tiles: its symbol counter wraps to 0 at tile
+    262,144 (uint32, as the reference's). Tiles 262,143 and 262,144
+    against the plain version given ``first_tile``, and tile 262,144 with
+    tile 0's payload receives tile 0's words."""
+    tiles = 262_145
+    wrap = 262_144
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    x = torch.randn(tiles * 1024, generator=g, device=cuda_device) * 1e-3
+    x[wrap * 1024:] = x[:1024]
+    seed = torch.tensor(987654321, dtype=torch.int64, device=cuda_device)
+    npow = torch.tensor(G0 / 10, device=cuda_device)
+    gain = torch.tensor(G0, device=cuda_device)
+    got, _ = TAC.approx_channel_kernel(x, seed, npow, gain)
+    lo = (wrap - 1) * 1024
+    want, _ = TR.ref_approx_channel(x[lo:], seed, npow, gain,
+                                    first_tile=wrap - 1)
+    assert torch.equal(_bits(got[lo:]), _bits(want))
+    assert torch.equal(_bits(got[wrap * 1024:]), _bits(got[:1024]))
 
 
 def _small_llm(dtype="float32"):

@@ -329,3 +329,70 @@ def test_cpu_wrapper_counts_no_launch():
         xt, _t(SEEDS, np.int64), _t(npow), _t(gains),
         torch.full((C,), 1.0 / C), block_words=BW)
     assert TAC.launch_counts() == {"k0": 0, "k1": 0, "k2": 0}
+
+
+def _extern_c_signatures():
+    """``{name: [parameter types]}`` of the ``extern "C"`` entries of the
+    kernels' CUDA source, read from the text (no compiler here)."""
+    import pathlib
+    import re
+
+    src = (pathlib.Path(TAC.__file__).parent / "csrc" /
+           "approx_channel.cu").read_text()
+    out = {}
+    for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src):
+        out[name] = [" ".join(p.split()[:-1]) + ("*" if "*" in p else "")
+                     for p in params.split(",")]
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(TAC.SIGNATURES))
+def test_binding_matches_cuda_source(name):
+    """Each entry's ctypes ``argtypes`` has one type per parameter of its
+    ``extern "C"`` declaration: ``c_void_p`` for every pointer (and the
+    stream), ``c_int`` / ``c_uint32`` / ``c_float`` for the scalars."""
+    import ctypes
+
+    decl = _extern_c_signatures()
+    assert set(decl) == set(TAC.SIGNATURES)
+    params, argtypes = decl[name], TAC.SIGNATURES[name]
+    assert len(params) == len(argtypes)
+    scalar = {"int": ctypes.c_int, "uint32_t": ctypes.c_uint32,
+              "float": ctypes.c_float}
+    for p, t in zip(params, argtypes):
+        want = ctypes.c_void_p if p.endswith("*") else scalar[p]
+        assert t is want, (name, p, t)
+
+
+@pytest.mark.parametrize("word_bits", [32, 16])
+@pytest.mark.parametrize("row", [0, 1])
+def test_cpu_k0_wrapper_vs_pallas(row, word_bits):
+    """On CPU tensors ``approx_channel_kernel`` is the plain version: row
+    0 noiseless equals the reference's ``approx_channel_pallas`` exactly,
+    row 1 at 10 dB under the edge rule; both equal the port's plain K1 on
+    the same row as a C=1 batch bit for bit, and no counter moves."""
+    xj, xt = _payload(word_bits, seed=20)
+    npow, gains = _link(10.0)
+    kw = dict(bits_per_symbol=4, fading="block_rayleigh", fade_block=48,
+              block_words=BW, word_bits=word_bits,
+              clamp_mask=0xBFFF if word_bits == 16 else 0xBFFFFFFF)
+    seed, p = int(SEEDS[row]), float(npow[row])
+    TAC.reset_launch_counts()
+    got, errs = TAC.approx_channel_kernel(xt[row], seed, p, G0, **kw)
+    assert TAC.launch_counts() == {"k0": 0, "k1": 0, "k2": 0}
+    batch, berrs, edges = TR.approx_channel_batch_ref(
+        xt[row:row + 1], _t(SEEDS[row:row + 1], np.int64),
+        _t(npow[row:row + 1]), _t(gains[row:row + 1]), with_edges=True,
+        **kw)
+    gb = _bits(got, word_bits)
+    np.testing.assert_array_equal(gb, _bits(batch[0], word_bits))
+    assert errs.dtype == torch.int32 and int(errs) == int(berrs[0])
+    xr, er = JAC.approx_channel_pallas(
+        xj[row], jnp.uint32(SEEDS[row]), jnp.float32(p), jnp.float32(G0),
+        interpret=True, **kw)
+    rb = _bits(xr, word_bits)
+    if row == 0:
+        np.testing.assert_array_equal(rb, gb)
+        assert int(er) == int(errs) == 0
+    elif _edge_rule(rb, gb, edges.numpy()[0]) == 0:
+        assert int(er) == int(errs) > 0
