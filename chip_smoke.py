@@ -8,7 +8,8 @@ Drives the port (``src/repro_torch``) through its main path — the paper's
 FedSGD rounds over the approximate uplink, then the link-adaptation,
 FedAvg, downlink and sparse-uplink rounds built on it, with the
 observability sinks attached, the buffered asynchronous engine's
-waves, and the LLM trainer and server at qwen2-1.5b's full width — and
+waves, the LLM trainer and server at qwen2-1.5b's full width, and the
+moe family at phi3.5-moe's published widths — and
 holds both
 CUDA kernels against their plain PyTorch versions. Phases, each of which
 fails the run
@@ -177,6 +178,29 @@ fails the run
    tokens a second and peak memory; then decode at the 32 prompt
    positions against ``forward`` (and the prefill step against its last
    position, bit for bit), within ``DECODE_RTOL`` and ``DECODE_ULPS``.
+5k. The moe family: phi3.5-moe-42b-a6.6b at its published widths (d_model
+   4,096, 32 heads, 8 KV heads, 16 experts top-2, ``moe_d_ff`` 6,400,
+   vocab 32,064, bf16) cut to one layer (1,562,980,352 params, under K0's
+   2**31 - 1 words), from ``PRNGKey(0)``: 3 approx steps (QPSK 10 dB
+   Rayleigh on the kernel path, lr 0.1, a world of one) of
+   ``make_train_step_approx`` on ``train.main``'s key schedule and
+   ``TokenStream(32064, 256, 8)`` (2,048 tokens, capacity 385 an
+   expert). Launch counters from 0 just before, read just after: K0 once
+   a step, K1 and K2 never. Per step: loss and aux loss (finite), the
+   spans, the row's int32 bit-error count, peak memory. Step 0 by hand:
+   its loss equal to the trainer's, K0 on its gradient with the
+   trainer's count, the row's flipped bits equal to that count modulo
+   2**32, tiles 0, 262,143, 262,144 and the last against the plain
+   version on the card and the CPU (words and errors; no whole-row
+   plain pass). The server's decode path on the initial weights (batch 4,
+   32 + 16 tokens, full cache): tokens a second, peak; decode at the 32
+   prompt positions against ``forward`` at ``capacity_factor =
+   n_experts / top_k``, where ``capacity(128) == 128`` and forward drops
+   no token (decode routes 4 tokens and never drops), within
+   ``DECODE_RTOL`` / ``DECODE_ULPS`` away from a router near-tie
+   (``MOE_NEAR_TIE``). kimi-k2 at ``cfg.reduced()`` in float32 (a dense
+   layer, a moe layer with a shared expert): loss, logits and gradients on
+   the card against the CPU within the CPU tests' bounds.
 6. Times at the main-path shape (C=100, N=22,528, QPSK, f32; K0 on the
    first client's row, beside K1 at C=1 on it):
    kernel and plain version with CUDA events (median of single launches
@@ -189,8 +213,8 @@ fails the run
    round 0's ``iot-lowrate`` uncoded buckets), one padded tile a client,
    beside the bound of the ``k`` words.
 7. The result: a JSON line of the kernels (``launches`` counts phase 5's,
-   5e's, 5f's, 5g's, 5h's and 5i's runs; K0's row is the trainer's row
-   from 5i: its time, plain time, bound and error), ``nvidia-smi``'s line,
+   5e's, 5f's, 5g's, 5h's, 5i's and 5k's runs; K0's row is the trainer's
+   row from 5i: its time, plain time, bound and error), ``nvidia-smi``'s line,
    and as the last line ``{"ok": true, "device": {...}}``.
 
 Needs one GPU, no network, and finishes in a few minutes. Exits non-zero,
@@ -2709,6 +2733,354 @@ def phase_server(torch, device, small: bool) -> None:
     _log(f"  phase 5j: {time.perf_counter() - t_phase:.1f} s")
 
 
+# ----------------------------------------------- phase 5k: the moe family
+
+
+MOE_ARCH = "phi3.5-moe-42b-a6.6b"
+MOE_PARAMS = 1_562_980_352  # one layer at the published widths
+MOE_CHECK_ARCH = "kimi-k2-1t-a32b"
+# Decode against forward: the hidden state reaching the router went
+# through bf16 matmuls of other shapes (4 rows against 128), so a token
+# whose K-th and K+1-th router probabilities in the forward lie within
+# MOE_NEAR_TIE (relative) of each other may route to the other expert in
+# decode. Such positions are excused from the bound and counted; with one
+# layer a flipped route changes only its own position's logits.
+MOE_NEAR_TIE = 1e-2
+POPCOUNT_CHUNK = 2**26  # words per chunk of the row's popcount
+
+
+def _moe_cfg(small: bool):
+    """phi3.5-moe at its published widths with the depth cut to one layer
+    (the row must stay under K0's 2**31 - 1 words); on the CPU rehearsal
+    the trainer's ``--reduced`` widths at one layer."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(MOE_ARCH)
+    if small:
+        return cfg.reduced(n_layers=1, d_model=256, vocab_size=1024)
+    return dataclasses.replace(cfg, n_layers=1)
+
+
+def _flips(torch, a_leaves, b_leaves) -> int:
+    """Bits that differ between two trees' float32 leaves (a Python
+    int), chunk by chunk."""
+    from repro_torch.core import float_codec as fc
+    from repro_torch.core import modulation as mod
+
+    total = 0
+    for a, b in zip(a_leaves, b_leaves):
+        a, b = a.reshape(-1), b.reshape(-1)
+        for lo in range(0, a.numel(), POPCOUNT_CHUNK):
+            hi = lo + POPCOUNT_CHUNK
+            total += int(mod.popcount(fc.f32_to_bits(a[lo:hi])
+                                      ^ fc.f32_to_bits(b[lo:hi])).sum())
+    return total
+
+
+def _as_f32_count(torch, n: int) -> float:
+    """``n`` as the int32 count the kernel keeps (wrapped modulo 2**32),
+    read as float32, as ``TxStats.bit_errors`` holds it."""
+    wrapped = (n + 2**31) % 2**32 - 2**31
+    return float(torch.tensor(wrapped, dtype=torch.float32))
+
+
+def _router_gaps(torch, params, tokens, cfg):
+    """``(p_K - p_K+1) / p_K`` of each token's router probabilities at
+    the moe layer of ``forward`` on ``tokens`` (one layer, no dense
+    layers)."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    x = T._embed_tokens(params, tokens, cfg)
+    positions = torch.arange(x.shape[1], dtype=torch.int32,
+                             device=x.device)[None, :]
+    pl = T._unstack_layers(params["layers"], 1)[0]
+    h = T._attn_block(x, pl, cfg, positions, cfg.sliding_window)
+    h = L.rmsnorm(h, pl["ln2"]).reshape(-1, cfg.d_model)
+    probs = torch.softmax(h.to(torch.float32) @ pl["moe"]["router"], dim=-1)
+    s = torch.sort(probs, dim=-1, descending=True).values
+    k = cfg.top_k
+    return ((s[:, k - 1] - s[:, k]) / s[:, k - 1]).reshape(tokens.shape)
+
+
+def _moe_card_vs_cpu(torch, device) -> None:
+    """kimi-k2 at ``cfg.reduced()`` (a dense layer, then a moe layer with
+    a shared expert) in float32: ``loss_fn``, ``forward`` and the
+    gradients on the card against the CPU on the same weights, within the
+    CPU tests' bounds (loss 2e-6, logits 2e-6 and gradients 1e-5 of each
+    leaf's largest)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import prng, transport
+    from repro_torch.launch import steps
+    from repro_torch.models import registry as R
+
+    cfg = get_config(MOE_CHECK_ARCH).reduced(dtype="float32")
+    p_cpu = R.init_params(prng.PRNGKey(0), cfg)
+    g = torch.Generator().manual_seed(11)
+    batch = {k: torch.randint(0, cfg.vocab_size, (2, 16), generator=g,
+                              dtype=torch.int32)
+             for k in ("tokens", "labels")}
+    out = {}
+    for where in (device, torch.device("cpu")):
+        p = transport.tree_map(lambda t: t.to(where), p_cpu)
+        b = {k: v.to(where) for k, v in batch.items()}
+        with torch.no_grad():
+            logits, aux = R.forward(p, b, cfg)
+        loss, grads = steps.value_and_grad(cfg, p, b)
+        out[where.type] = (float(loss), float(aux), logits.cpu(),
+                           [t.cpu() for t in transport.tree_flatten(grads)[0]])
+    (la, aa, ga, gra), (lb, ab, gb, grb) = out[device.type], out["cpu"]
+    d_logit = float((ga - gb).abs().max()) / float(gb.abs().max())
+    d_grad = max(float((x - y).abs().max()) / (float(y.abs().max()) or 1.0)
+                 for x, y in zip(gra, grb))
+    _log(f"  kimi-k2 reduced (float32, {cfg.first_dense_layers} dense + "
+         f"{cfg.n_layers - cfg.first_dense_layers} moe layer, "
+         f"{cfg.n_shared_experts} shared expert), {device.type} vs cpu: "
+         f"loss {la:.6f} vs {lb:.6f}, aux {aa:.6f} vs {ab:.6f}; logits "
+         f"{d_logit:.3g}, grads {d_grad:.3g} of their largest")
+    _check(abs(la - lb) <= 2e-6 and abs(aa - ab) <= 1e-6 and d_logit <= 2e-6
+           and d_grad <= 1e-5, "kimi-k2 reduced: card and CPU differ beyond "
+           "the bounds")
+
+
+def phase_moe(torch, device, small: bool, sass: dict, mhz) -> dict:
+    """Phase 5k: the moe family (phi3.5-moe at one layer): the trainer's
+    approx steps with K0 on the uplink, the server, decode against forward
+    at no-drop capacity, and kimi-k2 reduced on the card against the CPU.
+    Returns the trainer's launches."""
+    from repro_torch.core import channel, prng, transport
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.kernels import approx_channel as ac
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import world_mesh
+    from repro_torch.models import moe
+    from repro_torch.models import registry as R
+    from repro_torch.obs import spans
+    from repro_torch.optim.sgd import sgd
+
+    _log(f"== phase 5k: the moe family ({MOE_ARCH}, "
+         f"{'reduced (rehearsal)' if small else 'published widths'}, 1 "
+         f"layer)")
+    t_phase = time.perf_counter()
+    cfg = _moe_cfg(small)
+    batch, seq, n_steps = (2, 16, 1) if small else (8, 256, 3)
+    tcfg = transport.TransportConfig(
+        mode="approx", channel=channel.ChannelConfig(snr_db=10.0),
+        simulate_fec=False, ecrt_expected_tx=1.1, use_kernel=True)
+    opt = sgd(0.1)
+    clock = Clock(torch, device)
+
+    # (a) The trainer: train.main's schedule and step
+    # (make_train_step_approx, a world of one) at one layer: PRNGKey(0)
+    # makes the params, each step splits the key once.
+    clock.sync()
+    _reset_peak(torch, device)
+    t0 = time.perf_counter()
+    key = prng.PRNGKey(0, device=device)
+    params = R.init_params(key, cfg)
+    clock.sync()
+    t_init = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in transport.tree_flatten(params)[0])
+    _log(f"  init_params: {n_params:,} params in {t_init:.2f} s, peak "
+         f"{_gib(torch, device):.3f} GiB; {cfg.n_experts} experts, top-"
+         f"{cfg.top_k}, moe_d_ff {cfg.moe_d_ff}; capacity "
+         f"{moe.capacity(batch * seq, cfg)} of {batch * seq} tokens")
+    _check(small or n_params == MOE_PARAMS, f"{n_params} params")
+    opt_state = opt.init(params)
+    stream = TokenStream(cfg.vocab_size, seq, batch)
+    step = steps.make_train_step_approx(cfg, opt, tcfg, world_mesh())
+    records, b0 = [], None
+    _reset_peak(torch, device)
+    ac.reset_launch_counts()
+    for i in range(n_steps):
+        b = stream.next_batch()
+        if i == 0:
+            b0 = b
+        ks = prng.split(key)
+        key, sk = ks[0], ks[1]
+        with torch.no_grad():  # this step's aux loss, on the same batch
+            _, aux = R.forward(params, {"tokens": torch.as_tensor(
+                b["tokens"]).to(device)}, cfg)
+        with spans.collect(device) as phase_s:
+            params, opt_state, loss, stats = step(params, opt_state, b, sk)
+        records.append({
+            "loss": float(loss), "aux": float(aux), "phase_s": dict(phase_s),
+            "k0": ac.launch_counts()["k0"], "sk": sk,
+            "errors": float(stats.bit_errors), "n_bits": float(stats.n_bits),
+            "peak": _gib(torch, device)})
+        _reset_peak(torch, device)
+    counts = ac.launch_counts()
+    want = n_steps if device.type == "cuda" else 0
+    _check(counts == {"k0": want, "k1": 0, "k2": 0},
+           f"moe trainer launched {counts}, expected {want} K0 launches")
+    n_words = n_params
+    tiles = -(-n_words // 1024)
+    b = _bound(1, tiles * 1024, 2, "rayleigh", 32, "k1")
+    prev = 0
+    for i, r in enumerate(records):
+        ph = r["phase_s"]
+        _log(f"  step {i}: loss {r['loss']:.4f}, aux {r['aux']:.4f}; grad "
+             f"(forward + backward) {ph.get('grad', 0) * 1e3:.1f} ms, uplink "
+             f"keys {ph.get('keys', 0) * 1e3:.2f} ms, K0 "
+             f"{ph.get('kernel', 0) * 1e3:.2f} ms (bound "
+             f"{b['bound_ms']:.2f} ms), apply {ph.get('apply', 0) * 1e3:.1f}"
+             f" ms; K0 launches {r['k0'] - prev}; bit errors "
+             f"{r['errors']:.0f} of {r['n_bits']:.0f} bits (the int32 "
+             f"count, as float32); peak {r['peak']:.3f} GiB")
+        _check(math.isfinite(r["loss"]) and math.isfinite(r["aux"]),
+               f"moe step {i}: loss {r['loss']}, aux {r['aux']}")
+        _check(r["k0"] - prev == (1 if device.type == "cuda" else 0),
+               f"moe step {i}: K0 launched {r['k0'] - prev} times")
+        _check(r["errors"] != 0, f"moe step {i}: no bit errors at 10 dB")
+        prev = r["k0"]
+    _log(f"  K0 row: {n_words:,} words ({tiles:,} tiles); bound "
+         f"{b['bound_ms']:.2f} ms ({b['bound_by']}: {b['bytes'] / 1e9:.2f} "
+         f"GB -> {b['bytes_ms']:.2f} ms, {b['ops'] / 1e12:.2f} T ops -> "
+         f"{b['ops_ms']:.2f} ms)")
+    if sass and mhz:
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        floor = _issue_floor_ms(tiles * 1024 * 16, sass["k0"], sms, mhz)
+        k0_ms = min(r["phase_s"].get("kernel", 0) for r in records) * 1e3
+        _log(f"  K0: issue-rate floor {floor:.2f} ms ({sass['k0']['total']} "
+             f"instructions a symbol); the fastest step's K0 span at "
+             f"{floor / k0_ms:.0%} of it")
+    del params, opt_state
+
+    # (b) Step 0 by hand on the initial weights: its loss, K0 on its
+    # gradient under the trainer's key (rank 0's shard key) with the
+    # trainer's errors, the row's flipped bits against the kernel's int32
+    # count modulo 2**32, and sampled tiles against the plain version on
+    # the card and the CPU.
+    params = R.init_params(prng.PRNGKey(0, device=device), cfg)
+    local = {k: torch.as_tensor(v).to(device) for k, v in b0.items()}
+    loss0, grads = steps.value_and_grad(cfg, params, local)
+    _check(float(loss0) == records[0]["loss"],
+           f"moe step 0's loss {float(loss0)} != the trainer's "
+           f"{records[0]['loss']}")
+    g32 = transport.tree_map(lambda g: g.to(torch.float32), grads)
+    del grads
+    # rank 0's shard key, as approx_allreduce folds it: lint: ignore[keylane]
+    shard_key = prng.fold_in(records[0]["sk"], 0)
+    ac.reset_launch_counts()
+    hat, st0 = transport.transmit_pytree(g32, shard_key, tcfg, device=device)
+    _check(ac.launch_counts()["k0"] == (1 if device.type == "cuda" else 0),
+           "transmit_pytree did not launch K0 once")
+    _check(float(st0.bit_errors) == records[0]["errors"],
+           f"K0 on moe step 0's payload: {float(st0.bit_errors)} errors, the "
+           f"trainer's step 0 {records[0]['errors']}")
+    g_leaves, _ = transport.tree_flatten(g32)
+    hat_leaves, _ = transport.tree_flatten(hat)
+    flips = _flips(torch, g_leaves, hat_leaves)
+    _check(_as_f32_count(torch, flips) == records[0]["errors"],
+           f"the row's {flips} flipped bits != K0's count "
+           f"{records[0]['errors']} modulo 2**32")
+    _log(f"  step 0 by hand: loss {float(loss0):.4f} (the trainer's); K0 on "
+         f"its gradient: {flips:,} flipped bits in the row (BER "
+         f"{flips / (n_words * 32):.4f}) = the kernel's int32 count modulo "
+         f"2**32 ({'wrapped past' if flips >= 2**31 else 'under'} 2**31)")
+    seed = ops._seed_from_key(shard_key).to(device)
+    npow = torch.tensor(tcfg.channel.noise_power, dtype=torch.float32,
+                        device=device)
+    gain = torch.tensor(tcfg.channel.large_scale_gain, dtype=torch.float32,
+                        device=device)
+    sampled = sorted({0, COUNTER_WRAP_TILE - 1, COUNTER_WRAP_TILE,
+                      tiles - 1} & set(range(tiles)))
+    for t in sampled:
+        lo, hi = t * 1024, min((t + 1) * 1024, n_words)
+        xt = torch.nn.functional.pad(_flat_words(torch, g_leaves, lo, hi),
+                                     (0, 1024 - (hi - lo)))
+        kt = _flat_words(torch, hat_leaves, lo, hi).cpu()
+        k_err = _flips(torch, [xt[:hi - lo].cpu()], [kt])
+        for where in (device, torch.device("cpu")):
+            pt, pe = ref.ref_approx_channel(
+                xt.to(where), seed.to(where), npow.to(where),
+                gain.to(where), first_tile=t)
+            nd = int((_bits(torch, kt)
+                      != _bits(torch, pt[:hi - lo].cpu())).sum())
+            p_err = _flips(torch, [xt[:hi - lo].cpu()], [pt[:hi - lo].cpu()])
+            _check(nd == 0 and k_err == p_err,
+                   f"moe K0 tile {t}: {nd} words differ from the plain "
+                   f"version on the {where.type}, errors {k_err} vs {p_err}")
+        _log(f"  K0 tile {t:,} (words {lo:,}-{hi - 1:,}"
+             f"{', padded' if hi - lo < 1024 else ''}): 0 differing words "
+             f"and {k_err} bit errors, as the plain version on the card and "
+             f"on the CPU")
+    del g32, hat, g_leaves, hat_leaves
+
+    # (c) The server's decode path (serve.main's loop and make_serve_step)
+    # on the initial weights: batch 4, a 32-token prompt fed token by
+    # token, then 16 greedy tokens, full cache.
+    pkey = prng.PRNGKey(0, device=device)
+    prompt = prng.randint(pkey, (4, 32), 0, cfg.vocab_size).to(torch.int32)
+    serve_step = steps.make_serve_step(cfg)
+    _reset_peak(torch, device)
+    ac.reset_launch_counts()
+    cache = R.init_cache(cfg, 4, 48, device=device)
+    tok, generated = prompt[:, :1], []
+    clock.sync()
+    t0 = time.perf_counter()
+    for pos in range(47):
+        nxt, cache = serve_step(params, cache, tok, pos)
+        if pos + 1 < 32:
+            tok = prompt[:, pos + 1:pos + 2]
+        else:
+            tok = nxt
+            generated.append(nxt)
+    clock.sync()
+    dt = time.perf_counter() - t0
+    gen = torch.cat(generated, dim=1)
+    _check(tuple(gen.shape) == (4, 16) and int(gen.min()) >= 0
+           and int(gen.max()) < cfg.vocab_size
+           and ac.launch_counts() == {"k0": 0, "k1": 0, "k2": 0},
+           f"moe serve: tokens {gen.shape}, launches {ac.launch_counts()}")
+    _log(f"  serve: {4 * 48 / dt:.1f} tokens/s (batch 4, 32 + 16 tokens, "
+         f"token-by-token, full cache), peak {_gib(torch, device):.3f} GiB")
+    del cache
+
+    # (d) Decode at the 32 prompt positions against forward, at
+    # capacity_factor = n_experts / top_k: forward's capacity(128) is then
+    # 128 and it drops no token; decode routes 4 tokens (capacity 4) and
+    # never drops.
+    cfg_nd = dataclasses.replace(cfg, capacity_factor=cfg.n_experts
+                                 / cfg.top_k)
+    _check(moe.capacity(4 * 32, cfg_nd) == 4 * 32, "forward would drop")
+    with torch.no_grad():
+        ref_logits, _ = R.forward(params, {"tokens": prompt}, cfg_nd)
+        gaps = _router_gaps(torch, params, prompt, cfg_nd)
+    cache = R.init_cache(cfg_nd, 4, 32, device=device)
+    outs = []
+    for t in range(32):
+        lg, cache = R.decode_step(params, cache, prompt[:, t:t + 1], t,
+                                  cfg_nd)
+        outs.append(lg[:, 0])
+    got = torch.stack(outs, dim=1)
+    err = (got - ref_logits).abs()
+    top = float(ref_logits.abs().max())
+    atol = DECODE_ULPS * 2.0 ** (math.floor(math.log2(top)) - 7)
+    over = ((err - (atol + DECODE_RTOL * ref_logits.abs())) > 0).any(-1)
+    near = gaps <= MOE_NEAR_TIE
+    agree = float((got.argmax(-1) == ref_logits.argmax(-1)).float().mean())
+    over_gaps = ", ".join(f"{float(g):.2e}" for g in gaps[over])
+    _log(f"  decode vs forward at 32 positions (capacity_factor "
+         f"{cfg_nd.capacity_factor}): max |diff| {float(err.max()):.4f} "
+         f"(rtol {DECODE_RTOL}, atol {atol:.4f} = {DECODE_ULPS} bf16 ULPs of "
+         f"max |logit| {top:.3f}); positions over the bound "
+         f"{int(over.sum())} of {over.numel()} (router gaps "
+         f"{over_gaps or '-'}), of them near router ties (gap <= "
+         f"{MOE_NEAR_TIE}) {int((over & near).sum())}; near ties in all "
+         f"{int(near.sum())}; argmax agreement {agree:.4f}")
+    _check(not bool((over & ~near).any()),
+           "moe decode differs from forward beyond the bound away from a "
+           "router near-tie")
+    del params, cache, ref_logits, got
+
+    # (e) kimi-k2 reduced on the card against the CPU.
+    _moe_card_vs_cpu(torch, device)
+    _log(f"  phase 5k: {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def phase_times(torch, device, small: bool, launches: dict, sass: dict,
                 mhz, buckets=(), sparse_shapes=(), k0_row=None) -> list:
     from repro_torch.core import aggregation, prng, transport
@@ -2915,8 +3287,10 @@ def main(argv=None) -> int:
         llm_launches, k0_row = phase_trainer(torch, device, small, sass, mhz)
         for k, v in llm_launches.items():
             launches[k] += v
-        k0_row["launches"] = launches["k0"]
         phase_server(torch, device, small)
+        for k, v in phase_moe(torch, device, small, sass, mhz).items():
+            launches[k] += v
+        k0_row["launches"] = launches["k0"]
         rows = phase_times(torch, device, small, launches, sass, mhz,
                            buckets, sparse_shapes, k0_row)
     except PhaseError as e:

@@ -353,15 +353,14 @@ def _ecrt_real(x: torch.Tensor, keys: torch.Tensor, cfg: TransportConfig,
     weights = 1 << (k_mod - 1 - torch.arange(k_mod, device=dev))
     sym = (cw.reshape(c, n_cw, sym_per_cw, k_mod) * weights).sum(-1)
     sym = sym.reshape(c, -1)
-    tx_keys = prng.fold_in(keys[:, None, :],
-                           torch.arange(cfg.max_tx, device=keys.device))
+    tx_keys = prng.split_batched(keys, cfg.max_tx)  # max_tx keys (C, 2)
     decoded = torch.zeros_like(cw)
     ok = torch.zeros((c, n_cw), dtype=torch.bool, device=dev)
     tx_count = torch.zeros((c, n_cw), dtype=torch.int64, device=dev)
     for t in range(cfg.max_tx):
         if bool(ok.all()):
             break  # the reference's later rounds change nothing from here
-        y, cc = _through_channel(sym, tx_keys[:, t], cfg, snr_vec)
+        y, cc = _through_channel(sym, tx_keys[t], cfg, snr_vec)
         nv = channel_lib.noise_var_post_eq(cc, cfg.channel, snr_db=snr_vec)
         llr = mod_lib.bit_llrs(y, nv, cfg.scheme).reshape(c, n_cw, n_code)
         pend = ~ok

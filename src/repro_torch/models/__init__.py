@@ -1,2 +1,3 @@
-"""Models of the port: the dense decoder family (``transformer``), its
-building blocks and the family registry."""
+"""Models of the port: the dense and moe decoder families
+(``transformer``, with the expert FFN in ``moe``), their building blocks
+and the family registry."""

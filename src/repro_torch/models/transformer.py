@@ -1,13 +1,19 @@
-"""Decoder-only transformer, dense family (port of
+"""Decoder-only transformer, dense and moe families (port of
 ``repro.models.transformer``).
 
-``dense`` is llama-style: RMSNorm, RoPE (optionally partial), GQA,
-SwiGLU; optional QKV bias (qwen2, chatglm), optional sliding window.
+* ``dense`` is llama-style: RMSNorm, RoPE (optionally partial), GQA,
+  SwiGLU; optional QKV bias (qwen2, chatglm), optional sliding window.
+* ``moe`` has the same attention with the FFN replaced by top-k expert
+  routing (``repro_torch.models.moe``, the dense dispatch), after
+  ``first_dense_layers`` dense layers at ``dense_d_ff``; the aux loss is
+  summed over the moe layers. ``moe_impl="expert_parallel"`` raises
+  ``NotImplementedError``.
+
 Layer leaves are stacked ``(L, ...)`` as in the reference; where the
 reference scans over them, the port loops over the layers, each under
 ``torch.utils.checkpoint`` when gradients are on (the reference's
 ``jax.checkpoint``). The other families of the reference's module
-(``moe``, ``vlm``, ``hybrid``) raise ``NotImplementedError``.
+(``vlm``, ``hybrid``) raise ``NotImplementedError``.
 
 API (used by the launchers and tests):
 
@@ -31,6 +37,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core import prng
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 
 __all__ = ["init_params", "forward", "loss_fn", "init_cache", "decode_step",
            "check_family"]
@@ -38,7 +45,6 @@ __all__ = ["init_params", "forward", "loss_fn", "init_cache", "decode_step",
 Params = Any
 
 _LATER = {
-    "moe": "ROADMAP Queue 1, item 10 (the moe model)",
     "vlm": "ROADMAP Queue 1, item 10 (the vlm model)",
     "hybrid": "ROADMAP Queue 1, item 10 (the hybrid model)",
 }
@@ -47,6 +53,13 @@ _LATER = {
 def check_family(cfg) -> None:
     """Raise for a family this module does not run yet."""
     if cfg.family == "dense":
+        return
+    if cfg.family == "moe":
+        if cfg.moe_impl == "expert_parallel":
+            raise NotImplementedError(
+                f"moe_impl='expert_parallel' ({cfg.name}) is not ported yet: "
+                "ROADMAP Queue 1, item 10a (moe_ffn_shardmap, expert "
+                "parallelism over all_to_all)")
         return
     if cfg.family in _LATER:
         raise NotImplementedError(
@@ -98,6 +111,17 @@ def _init_dense_layer(key, cfg, dtype, d_ff=None):
     }
 
 
+def _init_moe_layer(key, cfg, dtype):
+    k1, k2 = prng.split(key)
+    dev = key.device
+    return {
+        "ln1": torch.zeros((cfg.d_model,), dtype=dtype, device=dev),
+        "ln2": torch.zeros((cfg.d_model,), dtype=dtype, device=dev),
+        "attn": _init_attn(k1, cfg, dtype),
+        "moe": MOE.init_moe(k2, cfg, dtype),
+    }
+
+
 def _stack(keys, fn):
     """``fn`` per key, leaves stacked on a new leading axis (the
     reference's ``vmap`` over the keys). Each leaf is written into its
@@ -140,8 +164,19 @@ def init_params(key, cfg) -> Params:
     if not cfg.tie_embeddings:
         params["lm_head"] = L.dense_init(ks[1], (cfg.d_model, cfg.vocab_size),
                                          dtype=dtype)
-    lk = prng.split(ks[2], cfg.n_layers)
-    params["layers"] = _stack(lk, lambda k: _init_dense_layer(k, cfg, dtype))
+    if cfg.family == "dense":
+        lk = prng.split(ks[2], cfg.n_layers)
+        params["layers"] = _stack(lk, lambda k: _init_dense_layer(k, cfg,
+                                                                 dtype))
+    else:  # moe
+        nd = cfg.first_dense_layers
+        if nd:
+            dk = prng.split(ks[3], nd)
+            params["dense_layers"] = _stack(dk, lambda k: _init_dense_layer(
+                k, cfg, dtype, cfg.dense_d_ff))
+        mk = prng.split(ks[4], cfg.n_layers - nd)
+        params["layers"] = _stack(mk, lambda k: _init_moe_layer(k, cfg,
+                                                               dtype))
     return params
 
 
@@ -194,6 +229,12 @@ def _mlp_block(x, p, cfg):
     return x + L.swiglu(h, p["mlp"]["wi"], p["mlp"]["wg"], p["mlp"]["wo"])
 
 
+def _moe_block(x, p, cfg):
+    h = L.rmsnorm(x, p["ln2"])
+    out, aux = MOE.moe_ffn(h, p["moe"], cfg)
+    return x + out, aux
+
+
 def _embed_tokens(params, tokens, cfg):
     return params["embed"][tokens.long()]
 
@@ -203,25 +244,45 @@ def _layer(x, pl, cfg, positions, window):
     return _mlp_block(h, pl, cfg)
 
 
+def _moe_layer(x, pl, cfg, positions, window):
+    h = _attn_block(x, pl, cfg, positions, window)
+    return _moe_block(h, pl, cfg)
+
+
+def _run(fn, x, pl, cfg, positions, window):
+    """One layer, under ``torch.utils.checkpoint`` when gradients are on."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, x, pl, cfg, positions, window,
+                          use_reentrant=False)
+    return fn(x, pl, cfg, positions, window)
+
+
 def forward(params: Params, batch: dict, cfg):
     """Training / prefill forward. Returns ``(logits float32 (B, S, V),
-    aux_loss)``; ``aux_loss`` is a float32 zero for the dense family."""
+    aux_loss)``; ``aux_loss`` is the float32 sum of the moe layers' aux
+    losses from 0, a float32 zero for the dense family."""
     check_family(cfg)
     tokens = batch["tokens"]
     x = _embed_tokens(params, tokens, cfg)
     positions = torch.arange(x.shape[1], dtype=torch.int32,
                              device=x.device)[None, :]
     window = cfg.sliding_window
-    for pl in _unstack_layers(params["layers"], cfg.n_layers):
-        if torch.is_grad_enabled():
-            x = checkpoint(_layer, x, pl, cfg, positions, window,
-                           use_reentrant=False)
-        else:
-            x = _layer(x, pl, cfg, positions, window)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.family == "dense":
+        for pl in _unstack_layers(params["layers"], cfg.n_layers):
+            x = _run(_layer, x, pl, cfg, positions, window)
+    else:  # moe
+        nd = cfg.first_dense_layers
+        if nd:
+            for pl in _unstack_layers(params["dense_layers"], nd):
+                x = _run(_layer, x, pl, cfg, positions, window)
+        for pl in _unstack_layers(params["layers"], cfg.n_layers - nd):
+            x, a = _run(_moe_layer, x, pl, cfg, positions, window)
+            aux_total = aux_total + a
     x = L.rmsnorm(x, params["final_norm"])
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     logits = torch.matmul(x, head).to(torch.float32)
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, aux_total
 
 
 def _gold_logit(logits, labels):
@@ -247,13 +308,21 @@ def loss_fn(params: Params, batch: dict, cfg):
 def init_cache(cfg, batch_size: int, cache_len: int, dtype=None,
                device=None) -> dict:
     """Zero KV cache ``{"k", "v"}`` of ``(L, B, cache_len, KVH, hd)``;
-    ``cache_len`` is the window for ring (sliding) caches."""
+    ``cache_len`` is the window for ring (sliding) caches. A moe config's
+    ``k`` / ``v`` cover its moe layers, and ``dk`` / ``dv`` its
+    ``first_dense_layers``."""
     check_family(cfg)
     dtype = dtype or L.dtype_of(cfg)
-    shape = (cfg.n_layers, batch_size, cache_len, cfg.n_kv_heads,
-             cfg.resolved_head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    nd = cfg.first_dense_layers if cfg.family == "moe" else 0
+
+    def zeros(n):
+        return torch.zeros((n, batch_size, cache_len, cfg.n_kv_heads,
+                            cfg.resolved_head_dim), dtype=dtype, device=device)
+
+    cache = {"k": zeros(cfg.n_layers - nd), "v": zeros(cfg.n_layers - nd)}
+    if nd:
+        cache["dk"], cache["dv"] = zeros(nd), zeros(nd)
+    return cache
 
 
 def _decode_attn(x, p, cfg, kc, vc, pos, ring: bool):
@@ -282,6 +351,18 @@ def _decode_attn(x, p, cfg, kc, vc, pos, ring: bool):
     return x + o.to(x.dtype), kc, vc
 
 
+def _decode_layers(x, stacked, n, kcache, vcache, pos, cfg, ring, moe):
+    """Decode through ``n`` stacked layers (moe FFNs when ``moe``);
+    returns ``x`` and the layers' new caches, stacked."""
+    ks, vs = [], []
+    for i, pl in enumerate(_unstack_layers(stacked, n)):
+        x, kc, vc = _decode_attn(x, pl, cfg, kcache[i], vcache[i], pos, ring)
+        x = _moe_block(x, pl, cfg)[0] if moe else _mlp_block(x, pl, cfg)
+        ks.append(kc)
+        vs.append(vc)
+    return x, torch.stack(ks), torch.stack(vs)
+
+
 @torch.no_grad()
 def decode_step(params, cache, tokens, pos, cfg, *, ring: bool = False):
     """One decode step. tokens: ``(B, 1)`` ints; pos: int.
@@ -291,14 +372,15 @@ def decode_step(params, cache, tokens, pos, cfg, *, ring: bool = False):
     """
     check_family(cfg)
     x = _embed_tokens(params, tokens, cfg)
-    ks, vs = [], []
-    for i, pl in enumerate(_unstack_layers(params["layers"], cfg.n_layers)):
-        x, kc, vc = _decode_attn(x, pl, cfg, cache["k"][i], cache["v"][i],
-                                 pos, ring)
-        x = _mlp_block(x, pl, cfg)
-        ks.append(kc)
-        vs.append(vc)
-    cache = dict(cache, k=torch.stack(ks), v=torch.stack(vs))
+    moe = cfg.family == "moe"
+    nd = cfg.first_dense_layers if moe else 0
+    if nd:
+        x, dk, dv = _decode_layers(x, params["dense_layers"], nd, cache["dk"],
+                                   cache["dv"], pos, cfg, ring, False)
+        cache = dict(cache, dk=dk, dv=dv)
+    x, k, v = _decode_layers(x, params["layers"], cfg.n_layers - nd,
+                             cache["k"], cache["v"], pos, cfg, ring, moe)
+    cache = dict(cache, k=k, v=v)
     x = L.rmsnorm(x, params["final_norm"])
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     logits = torch.matmul(x, head).to(torch.float32)

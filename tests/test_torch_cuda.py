@@ -1096,3 +1096,108 @@ def test_server_reduced_card_vs_cpu(cuda_device, ring):
     (ta, la), (tb, lb) = tokens["cuda"], tokens["cpu"]
     assert torch.equal(ta, tb)
     assert float((la - lb).abs().max()) <= 1e-4 * float(lb.abs().max())
+
+
+# ------------------------------------------------------------ moe family
+
+
+def _small_moe(dtype="float32", **kw):
+    from repro_torch.configs import get_config
+
+    return get_config("phi3.5-moe-42b-a6.6b").reduced(dtype=dtype, **kw)
+
+
+def _moe_inputs(cfg, device, t=256, seed=0):
+    from repro_torch.core import prng as P
+    from repro_torch.models import moe
+
+    p = moe.init_moe(P.PRNGKey(seed), cfg, getattr(torch, cfg.dtype))
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((t, cfg.d_model), generator=g).to(getattr(torch,
+                                                              cfg.dtype))
+    return ({k: v.to(device) for k, v in p.items()}, x.to(device), p, x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("factor", [1.5, 0.25])
+def test_moe_ffn_card_vs_cpu(cuda_device, factor):
+    """``moe_ffn`` at ``cfg.reduced()`` widths in float32, 256 tokens
+    (with drops at capacity factor 0.25): the routing of
+    ``_local_dispatch`` (``se``, ``st``, ``slot_c``) equal on the card and
+    the CPU, the output within 2e-6 of the largest, aux within 1e-6. (The
+    router's products round differently; the inputs have no token whose
+    K-th and K+1-th probabilities lie within 1e-6, which is checked.)"""
+    import dataclasses
+
+    from repro_torch.models import moe
+
+    cfg = dataclasses.replace(_small_moe(), capacity_factor=factor)
+    pd, xd, pc, xc = _moe_inputs(cfg, cuda_device)
+    probs = torch.softmax(xc @ pc["router"], -1).sort(-1, descending=True)[0]
+    gap = probs[:, cfg.top_k - 1] - probs[:, cfg.top_k]
+    assert not bool((gap <= 1e-6 * probs[:, cfg.top_k - 1]).any())
+    c = moe.capacity(xc.shape[0], cfg)
+    rd = moe._local_dispatch(xd, pd, cfg, c)
+    rc = moe._local_dispatch(xc, pc, cfg, c)
+    for i in (1, 2, 3):
+        assert torch.equal(rd[i].cpu(), rc[i])
+    assert torch.equal(rd[0].cpu(), rc[0])
+    od, ad = moe.moe_ffn(xd, pd, cfg)
+    oc, ac_ = moe.moe_ffn(xc, pc, cfg)
+    assert float((od.cpu() - oc).abs().max()) <= 2e-6 * float(oc.abs().max())
+    assert abs(float(ad) - float(ac_)) <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_combine_deterministic(cuda_device, dtype):
+    """Under deterministic algorithms, ``moe_ffn``'s output, aux and the
+    gradients of input and weights (the combine's gathers and sum, the
+    backward's accumulate into the ``x2[st]`` gather and the dispatch
+    scatter) are equal bit for bit across two runs, 1,024 tokens at top-2
+    with drops."""
+    from repro_torch.core.transport import tree_flatten, tree_unflatten
+    from repro_torch.models import moe
+
+    cfg = _small_moe(dtype)
+    pd, xd, _, _ = _moe_inputs(cfg, cuda_device, t=1024, seed=3)
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        runs = []
+        for _ in range(2):
+            leaves, spec = tree_flatten(pd)
+            req = [t.clone().requires_grad_() for t in [xd] + leaves]
+            out, aux = moe.moe_ffn(req[0], tree_unflatten(spec, req[1:]), cfg)
+            grads = torch.autograd.grad(out.float().square().sum() + aux, req)
+            runs.append([out.detach(), aux.detach(), *grads])
+    finally:
+        torch.use_deterministic_algorithms(was)
+    for a, b in zip(*runs):
+        assert torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.cuda
+def test_moe_trainer_step_launches_k0_once(cuda_device):
+    """One approx step of the reduced phi3.5-moe (``make_train_step_approx``
+    on the kernel path): K0 once, K1 and K2 never; finite loss, bit errors
+    counted."""
+    from repro_torch.core import prng as P
+    from repro_torch.launch import steps as TST
+    from repro_torch.models import registry as R
+    from repro_torch.optim.sgd import sgd
+
+    cfg = _small_moe("bfloat16")
+    tcfg = TT.TransportConfig(mode="approx", use_kernel=True,
+                              channel=TCH.ChannelConfig(snr_db=10.0))
+    params = R.init_params(P.PRNGKey(0, device=cuda_device), cfg)
+    opt = sgd(0.1)
+    step = TST.make_train_step_approx(cfg, opt, tcfg)
+    rng = np.random.default_rng(0)
+    batch = {k: rng.integers(0, cfg.vocab_size, (2, 32)).astype(np.int32)
+             for k in ("tokens", "labels")}
+    TAC.reset_launch_counts()
+    params, _, loss, st = step(params, opt.init(params), batch,
+                               P.PRNGKey(1, device=cuda_device))
+    assert TAC.launch_counts() == {"k0": 1, "k1": 0, "k2": 0}
+    assert np.isfinite(float(loss)) and float(st.bit_errors) > 0

@@ -2,7 +2,7 @@
 ``core/aggregation.py``, ``checkpoint/io.py``, the trainer's uplink).
 
 * **Exact**: ``param_rules`` / ``checked_spec`` on every leaf of every
-  dense architecture at its published widths, ``batch_specs`` and
+  dense and moe architecture at its published widths, ``batch_specs`` and
   ``cache_specs``, against the reference's ``PartitionSpec`` entries on
   fake meshes (the reference test's ``(2, 16, 16)`` pod layout,
   ``(1, 1)``, ``(2, 1)`` and ``(4, 2)``); checkpoints written by one
@@ -60,7 +60,8 @@ from repro_torch.launch import steps as TST  # noqa: E402
 from repro_torch.models import registry as TR  # noqa: E402
 
 SMALL = dict(n_layers=2, d_model=64, d_ff=128, vocab_size=128)
-DENSE = [a for a in JC.ARCH_IDS if JC.get_config(a).family == "dense"]
+PORTED = [a for a in JC.ARCH_IDS
+          if JC.get_config(a).family in ("dense", "moe")]
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -104,7 +105,7 @@ def _path(keypath) -> str:
 # ------------------------------------------------------------------ specs
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", PORTED)
 @pytest.mark.parametrize("mesh_name", list(MESHES))
 def test_param_rules_exact(arch, mesh_name):
     mesh = _fake(*MESHES[mesh_name])
@@ -136,7 +137,7 @@ def test_param_rules_exact(arch, mesh_name):
             JSH.checked_spec(shape, axes, mesh))
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", PORTED)
 @pytest.mark.parametrize("mesh_name", list(MESHES))
 def test_batch_and_cache_specs_exact(arch, mesh_name, monkeypatch):
     """The reference wraps each cache spec in a ``NamedSharding``, which
