@@ -9,7 +9,8 @@ FedSGD rounds over the approximate uplink, then the link-adaptation,
 FedAvg, downlink and sparse-uplink rounds built on it, with the
 observability sinks attached, the buffered asynchronous engine's
 waves, the LLM trainer and server at qwen2-1.5b's full width, and the
-moe family at phi3.5-moe's published widths — and
+moe, vlm and hybrid families at phi3.5-moe's, pixtral-12b's and
+recurrentgemma-2b's published widths — and
 holds both
 CUDA kernels against their plain PyTorch versions. Phases, each of which
 fails the run
@@ -201,6 +202,26 @@ fails the run
    (``MOE_NEAR_TIE``). kimi-k2 at ``cfg.reduced()`` in float32 (a dense
    layer, a moe layer with a shared expert): loss, logits and gradients on
    the card against the CPU within the CPU tests' bounds.
+5l. The vlm family: pixtral-12b at its published widths (d_model 5,120,
+   32 heads, 8 KV heads, vocab 131,072, 256 patches of width 1,024, bf16)
+   cut to two layers (1,892,705,280 params): 3 approx steps as in 5k on
+   batches of ``registry.make_batch`` (8 x 256 tokens and their patches:
+   the trunk runs 512 positions, the head 256), K0 once a step, the
+   spans, the row's error count and peak; step 0 by hand as in 5k; the
+   prefill step on step 0's batch, bit for bit the forward's last
+   position, timed; ``cfg.reduced()`` in float32 on the card against the
+   CPU.
+5m. The hybrid family: recurrentgemma-2b at its published widths
+   (d_model 2,560, lru_width 2,560, 10 heads, MQA, vocab 256,000,
+   local_window 2,048, bf16) cut to five layers (one (rec, rec, attn)
+   group and a list tail of two rec blocks: 1,751,201,280 params): 3
+   approx steps on ``TokenStream(256000, 256, 8)`` as in 5k, step 0 by
+   hand; the server (batch 4, 32 + 16 tokens) in tokens a second; decode
+   at the 32 prompt positions against ``forward`` within
+   ``DECODE_RTOL`` / ``DECODE_ULPS``; the RG-LRU scan alone at (8, 256,
+   2,560) (forward, the odd/even recursion alone, forward and backward;
+   CUDA events); ``cfg.reduced()`` (no group, a tail of two) and
+   ``reduced(n_layers=5)`` in float32 on the card against the CPU.
 6. Times at the main-path shape (C=100, N=22,528, QPSK, f32; K0 on the
    first client's row, beside K1 at C=1 on it):
    kernel and plain version with CUDA events (median of single launches
@@ -213,7 +234,7 @@ fails the run
    round 0's ``iot-lowrate`` uncoded buckets), one padded tile a client,
    beside the bound of the ``k`` words.
 7. The result: a JSON line of the kernels (``launches`` counts phase 5's,
-   5e's, 5f's, 5g's, 5h's, 5i's and 5k's runs; K0's row is the trainer's
+   5e's, 5f's, 5g's, 5h's, 5i's, 5k's, 5l's and 5m's runs; K0's row is the trainer's
    row from 5i: its time, plain time, bound and error), ``nvidia-smi``'s line,
    and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -2843,37 +2864,37 @@ def _moe_card_vs_cpu(torch, device) -> None:
            "the bounds")
 
 
-def phase_moe(torch, device, small: bool, sass: dict, mhz) -> dict:
-    """Phase 5k: the moe family (phi3.5-moe at one layer): the trainer's
-    approx steps with K0 on the uplink, the server, decode against forward
-    at no-drop capacity, and kimi-k2 reduced on the card against the CPU.
-    Returns the trainer's launches."""
-    from repro_torch.core import channel, prng, transport
-    from repro_torch.data.tokens import TokenStream
+def _llm_tcfg():
+    """The trainer's uplink: approx QPSK at 10 dB, Rayleigh, on the kernel
+    path (K0 on one row a step)."""
+    from repro_torch.core import channel, transport
+
+    return transport.TransportConfig(
+        mode="approx", channel=channel.ChannelConfig(snr_db=10.0),
+        simulate_fec=False, ecrt_expected_tx=1.1, use_kernel=True)
+
+
+def _llm_train(torch, device, cfg, next_batch, n_steps: int, label: str,
+               sass: dict, mhz, want_params=None, init_note: str = "",
+               step_extra=None) -> tuple:
+    """``train.main``'s schedule and step (``make_train_step_approx``, a
+    world of one, lr 0.1): ``PRNGKey(0)`` makes the params, each step
+    splits the key once and takes ``next_batch(i)``. ``init_params``' time
+    and peak, the parameter count (against ``want_params``), and per step
+    the loss, the spans, K0's launches (once a step on the card, K1 and K2
+    never), the int32 error count and the peak; K0's bound and issue-rate
+    floor at the row. ``step_extra(params, batch)`` adds named floats to a
+    step's record (and its line). Returns ``(records, first batch,
+    parameter count, launch counts)``."""
+    from repro_torch.core import prng, transport
     from repro_torch.kernels import approx_channel as ac
-    from repro_torch.kernels import ops, ref
     from repro_torch.launch import steps
     from repro_torch.launch.mesh import world_mesh
-    from repro_torch.models import moe
     from repro_torch.models import registry as R
     from repro_torch.obs import spans
     from repro_torch.optim.sgd import sgd
 
-    _log(f"== phase 5k: the moe family ({MOE_ARCH}, "
-         f"{'reduced (rehearsal)' if small else 'published widths'}, 1 "
-         f"layer)")
-    t_phase = time.perf_counter()
-    cfg = _moe_cfg(small)
-    batch, seq, n_steps = (2, 16, 1) if small else (8, 256, 3)
-    tcfg = transport.TransportConfig(
-        mode="approx", channel=channel.ChannelConfig(snr_db=10.0),
-        simulate_fec=False, ecrt_expected_tx=1.1, use_kernel=True)
-    opt = sgd(0.1)
-    clock = Clock(torch, device)
-
-    # (a) The trainer: train.main's schedule and step
-    # (make_train_step_approx, a world of one) at one layer: PRNGKey(0)
-    # makes the params, each step splits the key once.
+    tcfg, opt, clock = _llm_tcfg(), sgd(0.1), Clock(torch, device)
     clock.sync()
     _reset_peak(torch, device)
     t0 = time.perf_counter()
@@ -2883,29 +2904,25 @@ def phase_moe(torch, device, small: bool, sass: dict, mhz) -> dict:
     t_init = time.perf_counter() - t0
     n_params = sum(p.numel() for p in transport.tree_flatten(params)[0])
     _log(f"  init_params: {n_params:,} params in {t_init:.2f} s, peak "
-         f"{_gib(torch, device):.3f} GiB; {cfg.n_experts} experts, top-"
-         f"{cfg.top_k}, moe_d_ff {cfg.moe_d_ff}; capacity "
-         f"{moe.capacity(batch * seq, cfg)} of {batch * seq} tokens")
-    _check(small or n_params == MOE_PARAMS, f"{n_params} params")
+         f"{_gib(torch, device):.3f} GiB{init_note}")
+    _check(want_params is None or n_params == want_params,
+           f"{label}: {n_params} params, expected {want_params}")
     opt_state = opt.init(params)
-    stream = TokenStream(cfg.vocab_size, seq, batch)
     step = steps.make_train_step_approx(cfg, opt, tcfg, world_mesh())
     records, b0 = [], None
     _reset_peak(torch, device)
     ac.reset_launch_counts()
     for i in range(n_steps):
-        b = stream.next_batch()
+        b = next_batch(i)
         if i == 0:
             b0 = b
         ks = prng.split(key)
         key, sk = ks[0], ks[1]
-        with torch.no_grad():  # this step's aux loss, on the same batch
-            _, aux = R.forward(params, {"tokens": torch.as_tensor(
-                b["tokens"]).to(device)}, cfg)
+        extra = step_extra(params, b) if step_extra else {}
         with spans.collect(device) as phase_s:
             params, opt_state, loss, stats = step(params, opt_state, b, sk)
         records.append({
-            "loss": float(loss), "aux": float(aux), "phase_s": dict(phase_s),
+            "loss": float(loss), "extra": extra, "phase_s": dict(phase_s),
             "k0": ac.launch_counts()["k0"], "sk": sk,
             "errors": float(stats.bit_errors), "n_bits": float(stats.n_bits),
             "peak": _gib(torch, device)})
@@ -2913,28 +2930,29 @@ def phase_moe(torch, device, small: bool, sass: dict, mhz) -> dict:
     counts = ac.launch_counts()
     want = n_steps if device.type == "cuda" else 0
     _check(counts == {"k0": want, "k1": 0, "k2": 0},
-           f"moe trainer launched {counts}, expected {want} K0 launches")
-    n_words = n_params
-    tiles = -(-n_words // 1024)
+           f"{label} trainer launched {counts}, expected {want} K0 launches")
+    tiles = -(-n_params // 1024)
     b = _bound(1, tiles * 1024, 2, "rayleigh", 32, "k1")
     prev = 0
     for i, r in enumerate(records):
         ph = r["phase_s"]
-        _log(f"  step {i}: loss {r['loss']:.4f}, aux {r['aux']:.4f}; grad "
-             f"(forward + backward) {ph.get('grad', 0) * 1e3:.1f} ms, uplink "
-             f"keys {ph.get('keys', 0) * 1e3:.2f} ms, K0 "
+        more = "".join(f", {k} {v:.4f}" for k, v in r["extra"].items())
+        _log(f"  step {i}: loss {r['loss']:.4f}{more}; grad (forward + "
+             f"backward) {ph.get('grad', 0) * 1e3:.1f} ms, uplink keys "
+             f"{ph.get('keys', 0) * 1e3:.2f} ms, K0 "
              f"{ph.get('kernel', 0) * 1e3:.2f} ms (bound "
              f"{b['bound_ms']:.2f} ms), apply {ph.get('apply', 0) * 1e3:.1f}"
              f" ms; K0 launches {r['k0'] - prev}; bit errors "
              f"{r['errors']:.0f} of {r['n_bits']:.0f} bits (the int32 "
              f"count, as float32); peak {r['peak']:.3f} GiB")
-        _check(math.isfinite(r["loss"]) and math.isfinite(r["aux"]),
-               f"moe step {i}: loss {r['loss']}, aux {r['aux']}")
+        _check(math.isfinite(r["loss"])
+               and all(math.isfinite(v) for v in r["extra"].values()),
+               f"{label} step {i}: loss {r['loss']}, {r['extra']}")
         _check(r["k0"] - prev == (1 if device.type == "cuda" else 0),
-               f"moe step {i}: K0 launched {r['k0'] - prev} times")
-        _check(r["errors"] != 0, f"moe step {i}: no bit errors at 10 dB")
+               f"{label} step {i}: K0 launched {r['k0'] - prev} times")
+        _check(r["errors"] != 0, f"{label} step {i}: no bit errors at 10 dB")
         prev = r["k0"]
-    _log(f"  K0 row: {n_words:,} words ({tiles:,} tiles); bound "
+    _log(f"  K0 row: {n_params:,} words ({tiles:,} tiles); bound "
          f"{b['bound_ms']:.2f} ms ({b['bound_by']}: {b['bytes'] / 1e9:.2f} "
          f"GB -> {b['bytes_ms']:.2f} ms, {b['ops'] / 1e12:.2f} T ops -> "
          f"{b['ops_ms']:.2f} ms)")
@@ -2945,18 +2963,29 @@ def phase_moe(torch, device, small: bool, sass: dict, mhz) -> dict:
         _log(f"  K0: issue-rate floor {floor:.2f} ms ({sass['k0']['total']} "
              f"instructions a symbol); the fastest step's K0 span at "
              f"{floor / k0_ms:.0%} of it")
-    del params, opt_state
+    return records, b0, n_params, counts
 
-    # (b) Step 0 by hand on the initial weights: its loss, K0 on its
-    # gradient under the trainer's key (rank 0's shard key) with the
-    # trainer's errors, the row's flipped bits against the kernel's int32
-    # count modulo 2**32, and sampled tiles against the plain version on
-    # the card and the CPU.
+
+def _llm_step0_by_hand(torch, device, cfg, b0, records, n_words: int,
+                       label: str):
+    """Step 0 by hand on the initial weights: its loss (the trainer's), K0
+    on its gradient under the trainer's key (rank 0's shard key) with the
+    trainer's errors, the row's flipped bits against the kernel's int32
+    count modulo 2**32, and tiles 0, 262,143, 262,144 and the last against
+    the plain version on the card and the CPU. Returns the initial
+    params."""
+    from repro_torch.core import prng, transport
+    from repro_torch.kernels import approx_channel as ac
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import steps
+    from repro_torch.models import registry as R
+
+    tcfg = _llm_tcfg()
     params = R.init_params(prng.PRNGKey(0, device=device), cfg)
     local = {k: torch.as_tensor(v).to(device) for k, v in b0.items()}
     loss0, grads = steps.value_and_grad(cfg, params, local)
     _check(float(loss0) == records[0]["loss"],
-           f"moe step 0's loss {float(loss0)} != the trainer's "
+           f"{label} step 0's loss {float(loss0)} != the trainer's "
            f"{records[0]['loss']}")
     g32 = transport.tree_map(lambda g: g.to(torch.float32), grads)
     del grads
@@ -2967,8 +2996,8 @@ def phase_moe(torch, device, small: bool, sass: dict, mhz) -> dict:
     _check(ac.launch_counts()["k0"] == (1 if device.type == "cuda" else 0),
            "transmit_pytree did not launch K0 once")
     _check(float(st0.bit_errors) == records[0]["errors"],
-           f"K0 on moe step 0's payload: {float(st0.bit_errors)} errors, the "
-           f"trainer's step 0 {records[0]['errors']}")
+           f"K0 on {label} step 0's payload: {float(st0.bit_errors)} errors, "
+           f"the trainer's step 0 {records[0]['errors']}")
     g_leaves, _ = transport.tree_flatten(g32)
     hat_leaves, _ = transport.tree_flatten(hat)
     flips = _flips(torch, g_leaves, hat_leaves)
@@ -2984,6 +3013,7 @@ def phase_moe(torch, device, small: bool, sass: dict, mhz) -> dict:
                         device=device)
     gain = torch.tensor(tcfg.channel.large_scale_gain, dtype=torch.float32,
                         device=device)
+    tiles = -(-n_words // 1024)
     sampled = sorted({0, COUNTER_WRAP_TILE - 1, COUNTER_WRAP_TILE,
                       tiles - 1} & set(range(tiles)))
     for t in sampled:
@@ -3000,17 +3030,26 @@ def phase_moe(torch, device, small: bool, sass: dict, mhz) -> dict:
                       != _bits(torch, pt[:hi - lo].cpu())).sum())
             p_err = _flips(torch, [xt[:hi - lo].cpu()], [pt[:hi - lo].cpu()])
             _check(nd == 0 and k_err == p_err,
-                   f"moe K0 tile {t}: {nd} words differ from the plain "
+                   f"{label} K0 tile {t}: {nd} words differ from the plain "
                    f"version on the {where.type}, errors {k_err} vs {p_err}")
         _log(f"  K0 tile {t:,} (words {lo:,}-{hi - 1:,}"
              f"{', padded' if hi - lo < 1024 else ''}): 0 differing words "
              f"and {k_err} bit errors, as the plain version on the card and "
              f"on the CPU")
-    del g32, hat, g_leaves, hat_leaves
+    return params
 
-    # (c) The server's decode path (serve.main's loop and make_serve_step)
-    # on the initial weights: batch 4, a 32-token prompt fed token by
-    # token, then 16 greedy tokens, full cache.
+
+def _serve_loop(torch, device, cfg, params, label: str):
+    """The server's decode path (``serve.main``'s loop and
+    ``make_serve_step``): batch 4, a 32-token prompt fed token by token,
+    then 16 greedy tokens, full cache; no kernel launch. Returns the
+    prompt."""
+    from repro_torch.core import prng
+    from repro_torch.kernels import approx_channel as ac
+    from repro_torch.launch import steps
+    from repro_torch.models import registry as R
+
+    clock = Clock(torch, device)
     pkey = prng.PRNGKey(0, device=device)
     prompt = prng.randint(pkey, (4, 32), 0, cfg.vocab_size).to(torch.int32)
     serve_step = steps.make_serve_step(cfg)
@@ -3033,10 +3072,67 @@ def phase_moe(torch, device, small: bool, sass: dict, mhz) -> dict:
     _check(tuple(gen.shape) == (4, 16) and int(gen.min()) >= 0
            and int(gen.max()) < cfg.vocab_size
            and ac.launch_counts() == {"k0": 0, "k1": 0, "k2": 0},
-           f"moe serve: tokens {gen.shape}, launches {ac.launch_counts()}")
+           f"{label} serve: tokens {gen.shape}, launches "
+           f"{ac.launch_counts()}")
     _log(f"  serve: {4 * 48 / dt:.1f} tokens/s (batch 4, 32 + 16 tokens, "
          f"token-by-token, full cache), peak {_gib(torch, device):.3f} GiB")
-    del cache
+    return prompt
+
+
+def _decode_vs_forward(torch, device, cfg, params, prompt):
+    """Decode at the 32 prompt positions against ``forward``: ``(logits
+    from decode, from forward, max |diff|, atol)``, the absolute term
+    ``DECODE_ULPS`` bf16 ULPs of the largest logit."""
+    from repro_torch.models import registry as R
+
+    with torch.no_grad():
+        ref_logits, _ = R.forward(params, {"tokens": prompt}, cfg)
+    cache = R.init_cache(cfg, 4, 32, device=device)
+    outs = []
+    for t in range(32):
+        lg, cache = R.decode_step(params, cache, prompt[:, t:t + 1], t, cfg)
+        outs.append(lg[:, 0])
+    got = torch.stack(outs, dim=1)
+    top = float(ref_logits.abs().max())
+    atol = DECODE_ULPS * 2.0 ** (math.floor(math.log2(top)) - 7)
+    return got, ref_logits, float((got - ref_logits).abs().max()), atol
+
+
+def phase_moe(torch, device, small: bool, sass: dict, mhz) -> dict:
+    """Phase 5k: the moe family (phi3.5-moe at one layer): the trainer's
+    approx steps with K0 on the uplink, the server, decode against forward
+    at no-drop capacity, and kimi-k2 reduced on the card against the CPU.
+    Returns the trainer's launches."""
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.models import moe
+    from repro_torch.models import registry as R
+
+    _log(f"== phase 5k: the moe family ({MOE_ARCH}, "
+         f"{'reduced (rehearsal)' if small else 'published widths'}, 1 "
+         f"layer)")
+    t_phase = time.perf_counter()
+    cfg = _moe_cfg(small)
+    batch, seq, n_steps = (2, 16, 1) if small else (8, 256, 3)
+    stream = TokenStream(cfg.vocab_size, seq, batch)
+
+    def aux_of(params, b):  # this step's aux loss, on the same batch
+        with torch.no_grad():
+            _, aux = R.forward(params, {"tokens": torch.as_tensor(
+                b["tokens"]).to(device)}, cfg)
+        return {"aux": float(aux)}
+
+    # (a) The trainer, (b) step 0 by hand.
+    records, b0, n_params, counts = _llm_train(
+        torch, device, cfg, lambda i: stream.next_batch(), n_steps, "moe",
+        sass, mhz, None if small else MOE_PARAMS,
+        f"; {cfg.n_experts} experts, top-{cfg.top_k}, moe_d_ff "
+        f"{cfg.moe_d_ff}; capacity {moe.capacity(batch * seq, cfg)} of "
+        f"{batch * seq} tokens", aux_of)
+    params = _llm_step0_by_hand(torch, device, cfg, b0, records, n_params,
+                                "moe")
+
+    # (c) The server's decode path on the initial weights.
+    prompt = _serve_loop(torch, device, cfg, params, "moe")
 
     # (d) Decode at the 32 prompt positions against forward, at
     # capacity_factor = n_experts / top_k: forward's capacity(128) is then
@@ -3045,39 +3141,228 @@ def phase_moe(torch, device, small: bool, sass: dict, mhz) -> dict:
     cfg_nd = dataclasses.replace(cfg, capacity_factor=cfg.n_experts
                                  / cfg.top_k)
     _check(moe.capacity(4 * 32, cfg_nd) == 4 * 32, "forward would drop")
+    got, ref_logits, max_err, atol = _decode_vs_forward(
+        torch, device, cfg_nd, params, prompt)
     with torch.no_grad():
-        ref_logits, _ = R.forward(params, {"tokens": prompt}, cfg_nd)
         gaps = _router_gaps(torch, params, prompt, cfg_nd)
-    cache = R.init_cache(cfg_nd, 4, 32, device=device)
-    outs = []
-    for t in range(32):
-        lg, cache = R.decode_step(params, cache, prompt[:, t:t + 1], t,
-                                  cfg_nd)
-        outs.append(lg[:, 0])
-    got = torch.stack(outs, dim=1)
     err = (got - ref_logits).abs()
-    top = float(ref_logits.abs().max())
-    atol = DECODE_ULPS * 2.0 ** (math.floor(math.log2(top)) - 7)
     over = ((err - (atol + DECODE_RTOL * ref_logits.abs())) > 0).any(-1)
     near = gaps <= MOE_NEAR_TIE
     agree = float((got.argmax(-1) == ref_logits.argmax(-1)).float().mean())
     over_gaps = ", ".join(f"{float(g):.2e}" for g in gaps[over])
     _log(f"  decode vs forward at 32 positions (capacity_factor "
-         f"{cfg_nd.capacity_factor}): max |diff| {float(err.max()):.4f} "
-         f"(rtol {DECODE_RTOL}, atol {atol:.4f} = {DECODE_ULPS} bf16 ULPs of "
-         f"max |logit| {top:.3f}); positions over the bound "
-         f"{int(over.sum())} of {over.numel()} (router gaps "
+         f"{cfg_nd.capacity_factor}): max |diff| {max_err:.4f} (rtol "
+         f"{DECODE_RTOL}, atol {atol:.4f} = {DECODE_ULPS} bf16 ULPs of max "
+         f"|logit| {float(ref_logits.abs().max()):.3f}); positions over the "
+         f"bound {int(over.sum())} of {over.numel()} (router gaps "
          f"{over_gaps or '-'}), of them near router ties (gap <= "
          f"{MOE_NEAR_TIE}) {int((over & near).sum())}; near ties in all "
          f"{int(near.sum())}; argmax agreement {agree:.4f}")
     _check(not bool((over & ~near).any()),
            "moe decode differs from forward beyond the bound away from a "
            "router near-tie")
-    del params, cache, ref_logits, got
+    del params, ref_logits, got
 
     # (e) kimi-k2 reduced on the card against the CPU.
     _moe_card_vs_cpu(torch, device)
     _log(f"  phase 5k: {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+# ------------------------------------- phases 5l / 5m: the vlm and hybrid
+
+
+VLM_ARCH = "pixtral-12b"
+VLM_PARAMS = 1_892_705_280  # two layers at the published widths
+HYBRID_ARCH = "recurrentgemma-2b"
+HYBRID_PARAMS = 1_751_201_280  # five layers: one (rec, rec, attn) group
+SCAN_SHAPE = (8, 256, 2560)  # the trainer's batch x tokens x lru_width
+# Card against CPU, float32 logits relative to the largest: the dense
+# family's 2e-6, except where an RG-LRU state carries each position's
+# rounding down the sequence (five hybrid layers measured 2.2e-6 and
+# 2.4e-6 on the H100): the gradients' 1e-5, as the CPU tests bound the
+# hybrid's decode.
+LOGIT_REL = {"vlm": 2e-6, "hybrid": 1e-5}
+
+
+def _family_card_vs_cpu(torch, device, cfg, label: str) -> None:
+    """``cfg`` (a ``reduced()`` config) in float32: ``loss_fn``,
+    ``forward`` and the gradients on the card against the CPU on the same
+    weights: the loss within 2e-6, the logits within ``LOGIT_REL`` of
+    their largest, the gradients within 1e-5 of each leaf's largest."""
+    from repro_torch.core import prng, transport
+    from repro_torch.launch import steps
+    from repro_torch.models import registry as R
+
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    p_cpu = R.init_params(prng.PRNGKey(0), cfg)
+    g = torch.Generator().manual_seed(12)
+    batch = {k: torch.randint(0, cfg.vocab_size, (2, 24), generator=g,
+                              dtype=torch.int32)
+             for k in ("tokens", "labels")}
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.randn(
+            (2, cfg.n_patches, cfg.vision_dim), generator=g)
+    out = []
+    for where in (device, torch.device("cpu")):
+        p = transport.tree_map(lambda t: t.to(where), p_cpu)
+        b = {k: v.to(where) for k, v in batch.items()}
+        with torch.no_grad():
+            logits, _ = R.forward(p, b, cfg)
+        loss, grads = steps.value_and_grad(cfg, p, b)
+        out.append((float(loss), logits.cpu(),
+                    [t.cpu() for t in transport.tree_flatten(grads)[0]]))
+    (la, ga, gra), (lb, gb, grb) = out
+    d_logit = float((ga - gb).abs().max()) / float(gb.abs().max())
+    d_grad = max(float((x - y).abs().max()) / (float(y.abs().max()) or 1.0)
+                 for x, y in zip(gra, grb) if y.numel())
+    _log(f"  {label} (float32), {device.type} vs cpu: loss {la:.6f} vs "
+         f"{lb:.6f}; logits {d_logit:.3g}, grads {d_grad:.3g} of their "
+         f"largest")
+    _check(abs(la - lb) <= 2e-6 and d_logit <= LOGIT_REL[cfg.family]
+           and d_grad <= 1e-5, f"{label}: card and CPU differ beyond the "
+           "bounds")
+
+
+def phase_vlm(torch, device, small: bool, sass: dict, mhz) -> dict:
+    """Phase 5l: the vlm family (pixtral-12b at two layers): the trainer's
+    approx steps on batches with patches, K0 on the uplink, step 0 by
+    hand, the prefill step, and the reduced config on the card against
+    the CPU. Returns the trainer's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core import prng
+    from repro_torch.launch import steps
+    from repro_torch.models import registry as R
+
+    _log(f"== phase 5l: the vlm family ({VLM_ARCH}, "
+         f"{'reduced (rehearsal)' if small else 'published widths'}, 2 "
+         f"layers)")
+    t_phase = time.perf_counter()
+    full = get_config(VLM_ARCH)
+    cfg = (full.reduced(n_layers=2, d_model=256, vocab_size=1024) if small
+           else dataclasses.replace(full, n_layers=2))
+    batch, seq, n_steps = (2, 16, 1) if small else (8, 256, 3)
+    shape = InputShape("chip_smoke", seq, batch, "train")
+
+    batch_keys = prng.split(prng.PRNGKey(1, device=device), n_steps)
+
+    def next_batch(i):  # tokens, labels and patches from registry.make_batch
+        return R.make_batch(cfg, shape, batch_keys[i])
+
+    records, b0, n_params, counts = _llm_train(
+        torch, device, cfg, next_batch, n_steps, "vlm", sass, mhz,
+        None if small else VLM_PARAMS,
+        f"; {cfg.n_patches} patches of width {cfg.vision_dim} before "
+        f"{seq} tokens ({cfg.n_patches + seq} positions in the trunk)")
+    params = _llm_step0_by_hand(torch, device, cfg, b0, records, n_params,
+                                "vlm")
+
+    # The prefill step on step 0's batch (patches and tokens): the
+    # forward's last token position, bit for bit.
+    pre = {k: v for k, v in b0.items() if k != "labels"}
+    prefill = steps.make_prefill_step(cfg)
+    prefill(params, pre)
+    (last, ms) = _timed(torch, device, lambda: prefill(params, pre))
+    with torch.no_grad():
+        full_logits, _ = R.forward(params, pre, cfg)
+    _check(tuple(last.shape) == (batch, cfg.vocab_size)
+           and bool(torch.isfinite(last).all())
+           and torch.equal(last, full_logits[:, -1]),
+           "vlm prefill: not the forward's last position")
+    _log(f"  prefill (batch {batch}, {cfg.n_patches} patches + {seq} "
+         f"tokens): {ms:.1f} ms, last-position logits {tuple(last.shape)} = "
+         f"forward's, bit for bit")
+    del params, full_logits
+
+    _family_card_vs_cpu(torch, device, full.reduced(),
+                        f"{VLM_ARCH} reduced ({full.reduced().n_patches} "
+                        f"patches)")
+    _log(f"  phase 5l: {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+def _scan_times(torch, device, params, cfg, small: bool) -> None:
+    """The RG-LRU alone at the trainer's shape: ``_rglru_scan`` (gates,
+    decay and the odd/even recursion) forward, the recursion
+    ``_assoc_scan`` alone, and ``_rglru_scan``'s forward and backward, on
+    group 0's first rec block; medians of single calls, CUDA events."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    clock = Clock(torch, device)
+    B, S, W = (2, 16, cfg.lru_width) if small else SCAN_SHAPE
+    g = torch.Generator().manual_seed(13)
+    xg = torch.randn((B, S, W), generator=g).to(device, L.dtype_of(cfg))
+    rec = {k: v[0].detach() for k, v in params["groups"]["rec0"]["rec"].items()}
+    with torch.no_grad():
+        r = torch.sigmoid(torch.matmul(xg, rec["w_r"]).to(torch.float32))
+        a = torch.exp(-8.0 * T._softplus(rec["lam"]) * r)
+        b = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * xg.to(
+            torch.float32)
+        reps = 5 if device.type == "cuda" else 2
+        t_scan = clock.median_ms(lambda: T._rglru_scan(xg, rec), reps)
+        t_rec = clock.median_ms(lambda: T._assoc_scan(a, b), reps)
+    xr = xg.clone().requires_grad_()
+
+    def fwd_bwd():
+        y, _ = T._rglru_scan(xr, rec)
+        torch.autograd.grad(y.sum(), xr)
+
+    t_fb = clock.median_ms(fwd_bwd, reps)
+    how = "CUDA events" if device.type == "cuda" else "host clock"
+    _log(f"  RG-LRU scan at {(B, S, W)}: _rglru_scan forward {t_scan:.3f} ms,"
+         f" the odd/even recursion alone {t_rec:.3f} ms, forward + backward "
+         f"{t_fb:.3f} ms (medians of {reps}, {how})")
+
+
+def phase_hybrid(torch, device, small: bool, sass: dict, mhz) -> dict:
+    """Phase 5m: the hybrid family (recurrentgemma-2b at five layers: one
+    group and a tail of two): the trainer's approx steps with K0 on the
+    uplink, step 0 by hand, the server, decode against forward, the RG-LRU
+    scan alone, and the reduced configs on the card against the CPU.
+    Returns the trainer's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenStream
+
+    _log(f"== phase 5m: the hybrid family ({HYBRID_ARCH}, "
+         f"{'reduced (rehearsal)' if small else 'published widths'}, 5 "
+         f"layers)")
+    t_phase = time.perf_counter()
+    full = get_config(HYBRID_ARCH)
+    cfg = (full.reduced(n_layers=5, d_model=256, vocab_size=1024) if small
+           else dataclasses.replace(full, n_layers=5))
+    G, tail_n = divmod(cfg.n_layers, cfg.attn_period)
+    batch, seq, n_steps = (2, 16, 1) if small else (8, 256, 3)
+    stream = TokenStream(cfg.vocab_size, seq, batch)
+    records, b0, n_params, counts = _llm_train(
+        torch, device, cfg, lambda i: stream.next_batch(), n_steps,
+        "hybrid", sass, mhz, None if small else HYBRID_PARAMS,
+        f"; {G} (rec, rec, attn) group and a tail of {tail_n} rec blocks, "
+        f"lru_width {cfg.lru_width}, local_window {cfg.local_window}")
+    params = _llm_step0_by_hand(torch, device, cfg, b0, records, n_params,
+                                "hybrid")
+    prompt = _serve_loop(torch, device, cfg, params, "hybrid")
+    got, ref_logits, max_err, atol = _decode_vs_forward(
+        torch, device, cfg, params, prompt)
+    over = (((got - ref_logits).abs()
+             - (atol + DECODE_RTOL * ref_logits.abs())) > 0).any(-1)
+    agree = float((got.argmax(-1) == ref_logits.argmax(-1)).float().mean())
+    _log(f"  decode vs forward at 32 positions: max |diff| {max_err:.4f} "
+         f"(rtol {DECODE_RTOL}, atol {atol:.4f} = {DECODE_ULPS} bf16 ULPs of "
+         f"max |logit| {float(ref_logits.abs().max()):.3f}); positions over "
+         f"the bound {int(over.sum())} of {over.numel()}; argmax agreement "
+         f"{agree:.4f}")
+    _check(not bool(over.any()), "hybrid decode differs from forward "
+           "beyond the bound")
+    del got, ref_logits
+    _scan_times(torch, device, params, cfg, small)
+    del params
+    for kw in ({}, dict(n_layers=5)):
+        red = full.reduced(**kw)
+        _family_card_vs_cpu(torch, device, red,
+                            f"{HYBRID_ARCH} reduced, {red.n_layers} layers")
+    _log(f"  phase 5m: {time.perf_counter() - t_phase:.1f} s")
     return counts
 
 
@@ -3288,8 +3573,9 @@ def main(argv=None) -> int:
         for k, v in llm_launches.items():
             launches[k] += v
         phase_server(torch, device, small)
-        for k, v in phase_moe(torch, device, small, sass, mhz).items():
-            launches[k] += v
+        for phase in (phase_moe, phase_vlm, phase_hybrid):
+            for k, v in phase(torch, device, small, sass, mhz).items():
+                launches[k] += v
         k0_row["launches"] = launches["k0"]
         rows = phase_times(torch, device, small, launches, sass, mhz,
                            buckets, sparse_shapes, k0_row)

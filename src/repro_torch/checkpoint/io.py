@@ -2,10 +2,11 @@
 of ``repro.checkpoint.io``, the same format both ways).
 
 ``manifest["keys"]`` are the reference's flattened paths (``jax``'s
-``"['layers']/['attn']/['wq']"``), leaves in sorted-key order, array
-``i`` stored as ``a{i}``. numpy has no bfloat16, so the port writes a
-bfloat16 leaf as float32 (exact: every bfloat16 is a float32), which the
-reference restores with ``astype``. It reads a bfloat16 leaf stored as
+``"['layers']/['attn']/['wq']"``, ``"['tail']/[0]/['rec']/['lam']"``),
+leaves in ``jax.tree_util`` order, array ``i`` stored as ``a{i}``. numpy
+has no bfloat16, so the port writes a bfloat16 leaf as float32 (exact:
+every bfloat16 is a float32), which the reference restores with
+``astype``. It reads a bfloat16 leaf stored as
 float32, or as the raw 2-byte words the reference's ``np.savez`` writes
 (``|V2``, read as ``uint16`` bit patterns); both are exact.
 """
@@ -25,14 +26,17 @@ __all__ = ["save", "restore", "tree_keys"]
 
 
 def tree_keys(tree: Any) -> list:
-    """The reference's manifest keys of a (nested) dict tree."""
+    """The reference's manifest keys of a tree of dicts and lists: each
+    leaf's path, ``['name']`` a dict key and ``[i]`` a list item, joined
+    by ``/``."""
     def walk(t, prefix):
         if isinstance(t, dict):
-            out = []
-            for k in sorted(t):
-                out.extend(walk(t[k], prefix + [f"[{k!r}]"]))
-            return out
-        return ["/".join(prefix)]
+            items = [(f"[{k!r}]", t[k]) for k in sorted(t)]
+        elif isinstance(t, list):
+            items = [(f"[{i}]", v) for i, v in enumerate(t)]
+        else:
+            return ["/".join(prefix)]
+        return [key for name, v in items for key in walk(v, prefix + [name])]
 
     return walk(tree, [])
 
@@ -45,7 +49,7 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def save(path: str, tree: Any, step: int = 0, extra: dict | None = None) -> None:
-    """Write ``tree`` (a dict of tensors, nested allowed) to ``path/``."""
+    """Write ``tree`` (dicts and lists of tensors, nested) to ``path/``."""
     os.makedirs(path, exist_ok=True)
     leaves, _ = transport_lib.tree_flatten(tree)
     np.savez(os.path.join(path, "arrays.npz"),

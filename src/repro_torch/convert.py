@@ -3,8 +3,9 @@
 The two packages draw init normals through different ``erfinv``
 routines, so their random inits can differ by a few ULP. Tests that must
 start both from identical weights hand the reference's parameters over
-as numpy arrays through :func:`params_from_jax`: a dict (nested dicts
-allowed, as the transformer's tree) of ``np.asarray(leaf)``. The port
+as numpy arrays through :func:`params_from_jax`: a tree of dicts and
+lists (the hybrid transformer's ``tail`` is a list) of
+``np.asarray(leaf)``. The port
 keeps the reference's layouts (conv OIHW, FC and projection weights
 ``(in, out)``, stacked layer leaves ``(L, ...)``), so the conversion is a
 copy. bfloat16 leaves stay bfloat16 (through float32, which holds every
@@ -27,19 +28,23 @@ def _leaf_from_numpy(v, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
 
 
-def params_from_jax(params: dict, device=None) -> dict:
-    """``{name: numpy array or nested dict}`` (the reference's params) ->
+def params_from_jax(params, device=None):
+    """The reference's params as numpy arrays (dicts and lists, nested) ->
     port params of the same tree and shapes on ``device`` (default: the
     CPU)."""
-    return {k: (params_from_jax(v, device) if isinstance(v, dict)
-                else _leaf_from_numpy(v, device))
-            for k, v in params.items()}
+    if isinstance(params, dict):
+        return {k: params_from_jax(v, device) for k, v in params.items()}
+    if isinstance(params, list):
+        return [params_from_jax(v, device) for v in params]
+    return _leaf_from_numpy(params, device)
 
 
-def params_to_numpy(params: dict) -> dict:
+def params_to_numpy(params):
     """Port params -> the same tree of numpy float32 arrays (bfloat16
     leaves widened exactly)."""
-    return {k: (params_to_numpy(v) if isinstance(v, dict)
-                else v.detach().cpu().to(torch.float32).numpy()
-                if v.dtype == torch.bfloat16 else v.detach().cpu().numpy())
-            for k, v in params.items()}
+    if isinstance(params, dict):
+        return {k: params_to_numpy(v) for k, v in params.items()}
+    if isinstance(params, list):
+        return [params_to_numpy(v) for v in params]
+    t = params.detach().cpu()
+    return (t.to(torch.float32) if t.dtype == torch.bfloat16 else t).numpy()

@@ -49,10 +49,10 @@ the reference's, draw for draw. The reference's batch path is a vmap of
 and :func:`transmit_flat` is the batch of one, so a batch row equals the
 single-client call bit for bit.
 
-Pytrees are dicts of tensors (nested dicts allowed). They flatten in
-``jax.tree_util.tree_flatten`` order — dict keys sorted — so every float
-lands in the same tile and symbol slot, and so gets the same draws, as in
-the reference. Parameters keep the reference's layout (FC weights are
+Pytrees are dicts and lists of tensors, nested. They flatten in
+``jax.tree_util.tree_flatten`` order — dict keys sorted, list items in
+order — so every float lands in the same tile and symbol slot, and so
+gets the same draws, as in the reference. Parameters keep the reference's layout (FC weights are
 ``(in, out)``).
 """
 
@@ -846,22 +846,30 @@ def transmit_batch_adaptive_aggregate(x, key: torch.Tensor, cfgs, mode_idx,
 
 
 def tree_flatten(tree) -> tuple[list, Any]:
-    """Leaves of a (nested) dict of tensors in ``jax.tree_util`` order —
-    dict keys sorted — and the structure to rebuild it."""
+    """Leaves of a tree of dicts and lists of tensors in
+    ``jax.tree_util`` order — dict keys sorted, list items in order — and
+    the structure to rebuild it. An empty dict or list holds no leaf."""
     if isinstance(tree, dict):
-        leaves, spec = [], []
-        for k in sorted(tree):
-            sub_leaves, sub_spec = tree_flatten(tree[k])
-            leaves.extend(sub_leaves)
-            spec.append((k, sub_spec, len(sub_leaves)))
-        return leaves, spec
-    return [tree], None
+        keys = sorted(tree)
+    elif isinstance(tree, list):
+        keys = range(len(tree))
+    else:
+        return [tree], None
+    leaves, children = [], []
+    for k in keys:
+        sub_leaves, sub_spec = tree_flatten(tree[k])
+        leaves.extend(sub_leaves)
+        children.append((k, sub_spec, len(sub_leaves)))
+    return leaves, (type(tree), children)
 
 
 def tree_map(fn, *trees):
-    """``fn`` over the leaves of (nested) dict trees of one structure."""
+    """``fn`` over the leaves of trees (dicts and lists) of one
+    structure."""
     if isinstance(trees[0], dict):
         return {k: tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    if isinstance(trees[0], list):
+        return [tree_map(fn, *items) for items in zip(*trees)]
     return fn(*trees)
 
 
@@ -869,11 +877,12 @@ def tree_unflatten(spec, leaves: list):
     """Inverse of :func:`tree_flatten`."""
     if spec is None:
         return leaves[0]
+    kind, children = spec
     out, off = {}, 0
-    for k, sub_spec, count in spec:
+    for k, sub_spec, count in children:
         out[k] = tree_unflatten(sub_spec, leaves[off:off + count])
         off += count
-    return out
+    return [out[i] for i in range(len(children))] if kind is list else out
 
 
 def _flatten_client_tree(tree):

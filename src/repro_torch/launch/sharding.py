@@ -229,9 +229,16 @@ def param_rules(path: str, shape, cfg, mesh, *, fsdp: bool) -> tuple:
 
 
 def _map_with_path(fn, tree, prefix=""):
+    """``fn(path, leaf)`` over a tree of dicts and lists; a path is the
+    keys and list indices joined by ``/`` (``tail/0/rec/w_x``), as
+    :func:`normalize_path` reads the reference's ``keystr``."""
+    def sub(k):
+        return f"{prefix}/{k}" if prefix else str(k)
+
     if isinstance(tree, dict):
-        return {k: _map_with_path(fn, v, f"{prefix}/{k}" if prefix else k)
-                for k, v in tree.items()}
+        return {k: _map_with_path(fn, v, sub(k)) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map_with_path(fn, v, sub(i)) for i, v in enumerate(tree)]
     return fn(prefix, tree)
 
 

@@ -62,12 +62,15 @@ def _local_batch(batch: dict, mesh, device) -> dict:
 
 def value_and_grad(cfg, params, batch):
     """``(loss, grads)`` of ``R.loss_fn`` at ``params``: grads in the
-    params' tree and dtypes (the reference's ``jax.value_and_grad``)."""
+    params' tree and dtypes (the reference's ``jax.value_and_grad``). A
+    leaf the loss does not read (the ``(0, ...)`` groups of a hybrid
+    config shorter than one group) gets a zero gradient."""
     leaves, spec = transport_lib.tree_flatten(params)
     with torch.enable_grad():
         req = [l.detach().requires_grad_() for l in leaves]
         loss = R.loss_fn(transport_lib.tree_unflatten(spec, req), batch, cfg)
-        grads = torch.autograd.grad(loss, req)
+        grads = torch.autograd.grad(loss, req, allow_unused=True,
+                                    materialize_grads=True)
     return loss.detach(), transport_lib.tree_unflatten(spec, list(grads))
 
 

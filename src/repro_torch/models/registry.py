@@ -1,11 +1,11 @@
 """Family -> implementation dispatch + input specs for every shape (port of
 ``repro.models.registry``).
 
-The port runs the ``dense`` and ``moe`` families
+The port runs the ``dense``, ``moe``, ``vlm`` and ``hybrid`` families
 (``models/transformer.py``, with ``models/moe.py``). The others raise
-``NotImplementedError`` naming the ROADMAP item that ports them: ``vlm``
-and ``hybrid`` (``models/transformer.py``), ``ssm`` (``models/ssm.py``)
-and ``audio`` (``models/audio.py``). The shape helpers
+``NotImplementedError`` naming the ROADMAP item that ports them: ``ssm``
+(``models/ssm.py``) and ``audio`` (``models/audio.py``), as does a moe
+config with ``moe_impl="expert_parallel"``. The shape helpers
 (``uses_ring_cache``, ``cache_len_for``, ``supports_shape``,
 ``input_specs``) answer for every family, as they are data.
 """

@@ -1201,3 +1201,88 @@ def test_moe_trainer_step_launches_k0_once(cuda_device):
                                P.PRNGKey(1, device=cuda_device))
     assert TAC.launch_counts() == {"k0": 1, "k1": 0, "k2": 0}
     assert np.isfinite(float(loss)) and float(st.bit_errors) > 0
+
+
+def _small_family(arch, **kw):
+    from repro_torch.configs import get_config
+
+    return get_config(arch).reduced(dtype="float32", **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,kw", [
+    ("recurrentgemma-2b", {}), ("recurrentgemma-2b", dict(n_layers=5)),
+    ("pixtral-12b", {})])
+def test_hybrid_and_vlm_reduced_card_vs_cpu(cuda_device, arch, kw):
+    """The hybrid family (no group and a tail of 2; one group and a tail
+    of 2) and the vlm family (16 patches) at ``cfg.reduced()`` widths,
+    float32, the same weights on the card and the CPU: the loss within
+    2e-6, the gradients within 1e-5 of each leaf's largest (the CPU tests'
+    bounds against the reference), the logits within 2e-6 of the largest
+    for vlm and 1e-5 for hybrid, whose RG-LRU state carries each
+    position's rounding down the sequence (five layers measured 2.4e-6 on
+    the H100; the CPU tests bound the hybrid's decode so)."""
+    from repro_torch.core import prng as P
+    from repro_torch.launch import steps as TST
+    from repro_torch.models import registry as R
+
+    cfg = _small_family(arch, **kw)
+    p_cpu = R.init_params(P.PRNGKey(0), cfg)
+    g = torch.Generator().manual_seed(5)
+    batch = {k: torch.randint(0, cfg.vocab_size, (2, 24), generator=g,
+                              dtype=torch.int32) for k in ("tokens", "labels")}
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.randn(
+            (2, cfg.n_patches, cfg.vision_dim), generator=g)
+    out = []
+    for dev in (cuda_device, torch.device("cpu")):
+        p = TT.tree_map(lambda t: t.to(dev), p_cpu)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        with torch.no_grad():
+            logits, _ = R.forward(p, b, cfg)
+        loss, grads = TST.value_and_grad(cfg, p, b)
+        out.append((float(loss), logits.cpu(),
+                    [t.cpu() for t in TT.tree_flatten(grads)[0]]))
+    (la, ga, gra), (lb, gb, grb) = out
+    assert ga.shape == (2, 24, cfg.vocab_size)
+    assert abs(la - lb) <= 2e-6
+    rel = 1e-5 if cfg.family == "hybrid" else 2e-6
+    assert float((ga - gb).abs().max()) <= rel * float(gb.abs().max())
+    assert len(gra) == len(grb)
+    for x, y in zip(gra, grb):
+        if y.numel():
+            assert float((x - y).abs().max()) <= 1e-5 * (
+                float(y.abs().max()) or 1.0)
+
+
+@pytest.mark.cuda
+def test_k0_on_a_hybrid_row_matches_plain(cuda_device):
+    """``transmit_pytree`` of a hybrid param tree (5 layers: one group and
+    a list tail of 2 rec blocks) on the kernel path: one K0 launch over
+    the whole row, the row in ``tree_flatten`` order equal to the plain
+    version of the same padded row on the card bit for bit, the tail
+    back as a list, the errors the plain version's less its padding's."""
+    from repro_torch.core import prng as P
+    from repro_torch.models import registry as R
+
+    cfg = _small_family("recurrentgemma-2b", n_layers=5)
+    tree = R.init_params(P.PRNGKey(0, device=cuda_device), cfg)
+    tcfg = TT.TransportConfig(mode="approx", use_kernel=True,
+                              channel=TCH.ChannelConfig(snr_db=10.0))
+    key = P.PRNGKey(7, device=cuda_device)
+    TAC.reset_launch_counts()
+    hat, st = TT.transmit_pytree(tree, key, tcfg, device=cuda_device)
+    assert TAC.launch_counts() == {"k0": 1, "k1": 0, "k2": 0}
+    assert isinstance(hat["tail"], list) and len(hat["tail"]) == 2
+    leaves = TT.tree_flatten(tree)[0]
+    row = torch.cat([t.reshape(-1) for t in leaves])
+    n = row.numel()
+    xp = torch.nn.functional.pad(row, (0, (-n) % 1024))
+    want, werrs = TR.ref_approx_channel(
+        xp, TO._seed_from_key(key).to(cuda_device),
+        torch.tensor(tcfg.channel.noise_power, device=cuda_device),
+        torch.tensor(tcfg.channel.large_scale_gain, device=cuda_device))
+    got = torch.cat([t.reshape(-1) for t in TT.tree_flatten(hat)[0]])
+    assert torch.equal(_bits(got), _bits(want[:n]))
+    pad_errs = int(TO._padding_errors(want[None, n:], 32)[0])
+    assert float(st.bit_errors) == float(int(werrs) - pad_errs) > 0

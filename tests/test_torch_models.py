@@ -7,7 +7,9 @@ Grades, as the ROADMAP defines them:
   not), ``INPUT_SHAPES``, ``input_specs`` shapes and dtypes for every
   architecture and shape, ``TokenStream`` batches, the integer draws of
   ``make_batch``, and the NotImplementedError of every family the port
-  does not run yet (the moe family is in ``test_torch_moe.py``).
+  does not run yet (the moe, vlm and hybrid families are in
+  ``test_torch_moe.py``, ``test_torch_vlm.py`` and
+  ``test_torch_hybrid.py``).
 * **Bounded** (bound in each test): ``init_params(PRNGKey(0))`` leaves
   (the normals go through ``torch.erfinv``, not XLA's ``erf_inv``);
   ``rmsnorm``, ``apply_rope``, the attentions and the decode attends in
@@ -130,11 +132,18 @@ def test_input_specs_equal(arch, shape_name):
 
 @pytest.mark.parametrize("arch", [a for a in JC.ARCH_IDS
                                   if JC.get_config(a).family
-                                  not in ("dense", "moe")])
+                                  not in ("dense", "moe", "vlm", "hybrid")]
+                         + ["expert_parallel:" + a for a in JC.ARCH_IDS
+                            if JC.get_config(a).family == "moe"])
 def test_other_families_raise(arch):
-    """The families not ported yet (the moe family runs:
-    ``test_torch_moe.py::test_moe_families_run``)."""
-    cfg = TC.get_config(arch).reduced()
+    """The families not ported yet, and a moe config's expert-parallel
+    dispatch (the moe, vlm and hybrid families run:
+    ``test_torch_moe.py``, ``test_torch_vlm.py``,
+    ``test_torch_hybrid.py``)."""
+    name = arch.split(":")[-1]
+    cfg = TC.get_config(name).reduced()
+    if arch.startswith("expert_parallel:"):
+        cfg = dataclasses.replace(cfg, moe_impl="expert_parallel")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TR.init_params(P.PRNGKey(0), cfg)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
