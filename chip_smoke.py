@@ -9,8 +9,9 @@ FedSGD rounds over the approximate uplink, then the link-adaptation,
 FedAvg, downlink and sparse-uplink rounds built on it, with the
 observability sinks attached, the buffered asynchronous engine's
 waves, the LLM trainer and server at qwen2-1.5b's full width, and the
-moe, vlm and hybrid families at phi3.5-moe's, pixtral-12b's and
-recurrentgemma-2b's published widths — and
+moe, vlm, hybrid, ssm and audio families at phi3.5-moe's, pixtral-12b's,
+recurrentgemma-2b's, falcon-mamba-7b's and whisper-large-v3's published
+widths — and
 holds both
 CUDA kernels against their plain PyTorch versions. Phases, each of which
 fails the run
@@ -222,6 +223,27 @@ fails the run
    2,560) (forward, the odd/even recursion alone, forward and backward;
    CUDA events); ``cfg.reduced()`` (no group, a tail of two) and
    ``reduced(n_layers=5)`` in float32 on the card against the CPU.
+5n. The ssm family: falcon-mamba-7b at its published widths (d_model
+   4,096, Di 8,192, ssm_state 16, conv 4, dt_rank 256, vocab 65,024,
+   bf16) cut to 12 of 64 layers (1,796,427,776 params): 3 approx steps on
+   ``TokenStream(65024, 256, 8)`` as in 5k, step 0 by hand; the server;
+   decode at the 32 prompt positions against ``forward`` within
+   ``SSM_DECODE_REL`` (forward rounds the conv and SiLU outputs to bf16,
+   decode does not, as in the reference); the selective scan alone at
+   (8, 256, 8,192, 16) (forward, the odd/even recursion alone, forward
+   and backward, each with its peak memory; CUDA events);
+   ``cfg.reduced()`` in float32 on the card against the CPU, 6 decode
+   steps included.
+5o. The audio family: whisper-large-v3 at its published widths and full
+   depth (32 encoder and 32 decoder layers, d_model 1,280, 20 heads,
+   d_ff 5,120, vocab 51,866, 1,500 frames, bf16 weights: 1,588,016,640
+   params): 3 approx steps as in 5k on ``registry.make_batch``'s float32
+   frames and 8 x 256 tokens (the encoder runs in float32, as ``jnp``
+   promotes), step 0 by hand; the server on the full cache (its
+   cross-attention reads the zero cache ``init_cache`` makes, as in the
+   reference, so no decode-against-forward check); ``cfg.reduced()`` in
+   float32 on the card against the CPU, frames and 6 decode steps
+   included.
 6. Times at the main-path shape (C=100, N=22,528, QPSK, f32; K0 on the
    first client's row, beside K1 at C=1 on it):
    kernel and plain version with CUDA events (median of single launches
@@ -234,9 +256,10 @@ fails the run
    round 0's ``iot-lowrate`` uncoded buckets), one padded tile a client,
    beside the bound of the ``k`` words.
 7. The result: a JSON line of the kernels (``launches`` counts phase 5's,
-   5e's, 5f's, 5g's, 5h's, 5i's, 5k's, 5l's and 5m's runs; K0's row is the trainer's
-   row from 5i: its time, plain time, bound and error), ``nvidia-smi``'s line,
-   and as the last line ``{"ok": true, "device": {...}}``.
+   5e's, 5f's, 5g's, 5h's, 5i's and 5k's to 5o's runs; K0's row is the
+   trainer's row from 5i: its time, plain time, bound and error),
+   ``nvidia-smi``'s line, and as the last line ``{"ok": true, "device":
+   {...}}``.
 
 Needs one GPU, no network, and finishes in a few minutes. Exits non-zero,
 printing no result, without a GPU or outside a checkout of the repository.
@@ -3181,15 +3204,20 @@ SCAN_SHAPE = (8, 256, 2560)  # the trainer's batch x tokens x lru_width
 # family's 2e-6, except where an RG-LRU state carries each position's
 # rounding down the sequence (five hybrid layers measured 2.2e-6 and
 # 2.4e-6 on the H100): the gradients' 1e-5, as the CPU tests bound the
-# hybrid's decode.
-LOGIT_REL = {"vlm": 2e-6, "hybrid": 1e-5}
+# hybrid's decode; the ssm's state carries it the same way. The audio
+# family has no recurrence: the dense bound.
+LOGIT_REL = {"vlm": 2e-6, "hybrid": 1e-5, "ssm": 1e-5, "audio": 2e-6}
 
 
-def _family_card_vs_cpu(torch, device, cfg, label: str) -> None:
+def _family_card_vs_cpu(torch, device, cfg, label: str,
+                        decode_steps: int = 0) -> None:
     """``cfg`` (a ``reduced()`` config) in float32: ``loss_fn``,
     ``forward`` and the gradients on the card against the CPU on the same
     weights: the loss within 2e-6, the logits within ``LOGIT_REL`` of
-    their largest, the gradients within 1e-5 of each leaf's largest."""
+    their largest, the gradients within 1e-5 of each leaf's largest. A vlm
+    batch draws ``patch_embeds`` and an audio batch ``frames``. With
+    ``decode_steps``, that many decode steps from ``init_cache`` too, each
+    step's logits within ``LOGIT_REL`` of their largest."""
     from repro_torch.core import prng, transport
     from repro_torch.launch import steps
     from repro_torch.models import registry as R
@@ -3203,6 +3231,9 @@ def _family_card_vs_cpu(torch, device, cfg, label: str) -> None:
     if cfg.family == "vlm":
         batch["patch_embeds"] = torch.randn(
             (2, cfg.n_patches, cfg.vision_dim), generator=g)
+    if cfg.family == "audio":
+        batch["frames"] = torch.randn((2, cfg.encoder_seq, cfg.d_model),
+                                      generator=g)
     out = []
     for where in (device, torch.device("cpu")):
         p = transport.tree_map(lambda t: t.to(where), p_cpu)
@@ -3210,17 +3241,28 @@ def _family_card_vs_cpu(torch, device, cfg, label: str) -> None:
         with torch.no_grad():
             logits, _ = R.forward(p, b, cfg)
         loss, grads = steps.value_and_grad(cfg, p, b)
+        dec, cache = [], R.init_cache(cfg, 2, decode_steps, device=where)
+        for t in range(decode_steps):
+            lg, cache = R.decode_step(p, cache, b["tokens"][:, t:t + 1], t,
+                                      cfg)
+            dec.append(lg.cpu())
         out.append((float(loss), logits.cpu(),
-                    [t.cpu() for t in transport.tree_flatten(grads)[0]]))
-    (la, ga, gra), (lb, gb, grb) = out
+                    [t.cpu() for t in transport.tree_flatten(grads)[0]],
+                    dec))
+    (la, ga, gra, da), (lb, gb, grb, db) = out
     d_logit = float((ga - gb).abs().max()) / float(gb.abs().max())
     d_grad = max(float((x - y).abs().max()) / (float(y.abs().max()) or 1.0)
                  for x, y in zip(gra, grb) if y.numel())
+    d_dec = max((float((x - y).abs().max()) / float(y.abs().max())
+                 for x, y in zip(da, db)), default=0.0)
+    more = (f", {decode_steps} decode steps {d_dec:.3g}" if decode_steps
+            else "")
     _log(f"  {label} (float32), {device.type} vs cpu: loss {la:.6f} vs "
-         f"{lb:.6f}; logits {d_logit:.3g}, grads {d_grad:.3g} of their "
+         f"{lb:.6f}; logits {d_logit:.3g}, grads {d_grad:.3g}{more} of their "
          f"largest")
-    _check(abs(la - lb) <= 2e-6 and d_logit <= LOGIT_REL[cfg.family]
-           and d_grad <= 1e-5, f"{label}: card and CPU differ beyond the "
+    rel = LOGIT_REL[cfg.family]
+    _check(abs(la - lb) <= 2e-6 and d_logit <= rel and d_grad <= 1e-5
+           and d_dec <= rel, f"{label}: card and CPU differ beyond the "
            "bounds")
 
 
@@ -3363,6 +3405,168 @@ def phase_hybrid(torch, device, small: bool, sass: dict, mhz) -> dict:
         _family_card_vs_cpu(torch, device, red,
                             f"{HYBRID_ARCH} reduced, {red.n_layers} layers")
     _log(f"  phase 5m: {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+# -------------------------------------- phases 5n / 5o: the ssm and audio
+
+
+SSM_ARCH = "falcon-mamba-7b"
+SSM_LAYERS = 12  # of 64: the depth nearest qwen2-1.5b's row (15 would fit)
+SSM_PARAMS = 1_796_427_776
+SSM_SCAN_SHAPE = (8, 256, 8192, 16)  # batch x tokens x Di x ssm_state
+# Decode against forward in the ssm, bf16: the reference's forward rounds
+# the conv's output and SiLU's output to bf16 before the scan
+# (src/repro/models/ssm.py:68, :105) and its decode keeps both in float32
+# (:159-161), so the scan's inputs differ by up to half a bf16 ULP at
+# every position and the state carries the difference down the sequence
+# and through the layers. The port copies both. The bound is on the
+# largest difference, relative to the largest logit: the dense family's
+# bf16 logits bound (measured 1.2e-2 at 3 layers of cfg.reduced() on the
+# CPU, in the port and in the reference alike).
+SSM_DECODE_REL = 3e-2
+AUDIO_ARCH = "whisper-large-v3"
+AUDIO_PARAMS = 1_588_016_640  # full depth: 32 encoder + 32 decoder layers
+
+
+def _ssm_scan_times(torch, device, params, cfg, small: bool) -> None:
+    """The selective scan alone at the trainer's shape, on layer 0:
+    ``_ssm_scan`` (projections, softplus, the ``(B, S, Di, N)`` decays and
+    inputs, the odd/even recursion, the read-out) forward, the recursion
+    ``_assoc_scan`` alone, and ``_ssm_scan``'s forward and backward, with
+    the peak memory of each; medians of single calls, CUDA events."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import ssm
+    from repro_torch.models import transformer as T
+
+    clock = Clock(torch, device)
+    B, S, Di, N = ((2, 16, cfg.expand * cfg.d_model, cfg.ssm_state) if small
+                   else SSM_SCAN_SHAPE)
+    R = ssm._dt_rank(cfg)
+    g = torch.Generator().manual_seed(14)
+    xc = torch.randn((B, S, Di), generator=g).to(device, L.dtype_of(cfg))
+    p = {k: v[0].detach() for k, v in params["layers"].items()}
+    reps = 5 if device.type == "cuda" else 2
+    with torch.no_grad():
+        proj = torch.matmul(xc, p["x_proj"]).to(torch.float32)
+        dt = T._softplus(torch.matmul(proj[..., :R], p["dt_proj"].to(
+            torch.float32)) + p["dt_bias"])
+        a = torch.exp(dt[..., None] * -torch.exp(p["A_log"]))
+        b = (dt * xc.to(torch.float32))[..., None] * proj[..., None, R:R + N]
+        del proj, dt
+        _reset_peak(torch, device)
+        t_scan = clock.median_ms(lambda: ssm._ssm_scan(xc, p, cfg), reps)
+        pk_scan = _gib(torch, device)
+        _reset_peak(torch, device)
+        t_rec = clock.median_ms(lambda: T._assoc_scan(a, b), reps)
+        pk_rec = _gib(torch, device)
+        del a, b
+    xr = xc.clone().requires_grad_()
+
+    def fwd_bwd():
+        y, _ = ssm._ssm_scan(xr, p, cfg)
+        torch.autograd.grad(y.to(torch.float32).sum(), xr)
+
+    _reset_peak(torch, device)
+    t_fb = clock.median_ms(fwd_bwd, reps)
+    pk_fb = _gib(torch, device)
+    how = "CUDA events" if device.type == "cuda" else "host clock"
+    gib = B * S * Di * N * 4 / 2**30
+    _log(f"  selective scan at {(B, S, Di, N)} ({gib:.2f} GiB a float32 "
+         f"tensor): _ssm_scan forward {t_scan:.3f} ms (peak "
+         f"{pk_scan:.3f} GiB), the odd/even recursion alone {t_rec:.3f} ms "
+         f"(peak {pk_rec:.3f} GiB), forward + backward {t_fb:.3f} ms (peak "
+         f"{pk_fb:.3f} GiB) (medians of {reps}, {how})")
+
+
+def phase_ssm(torch, device, small: bool, sass: dict, mhz) -> dict:
+    """Phase 5n: the ssm family (falcon-mamba-7b at 12 layers): the
+    trainer's approx steps with K0 on the uplink, step 0 by hand, the
+    server, decode against forward within ``SSM_DECODE_REL``, the
+    selective scan alone, and the reduced config on the card against the
+    CPU. Returns the trainer's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.models import ssm
+
+    full = get_config(SSM_ARCH)
+    cfg = (full.reduced(n_layers=3, d_model=256, vocab_size=1024) if small
+           else dataclasses.replace(full, n_layers=SSM_LAYERS))
+    _log(f"== phase 5n: the ssm family ({SSM_ARCH}, "
+         f"{'reduced (rehearsal)' if small else 'published widths'}, "
+         f"{cfg.n_layers} layers)")
+    t_phase = time.perf_counter()
+    batch, seq, n_steps = (2, 16, 1) if small else (8, 256, 3)
+    stream = TokenStream(cfg.vocab_size, seq, batch)
+    records, b0, n_params, counts = _llm_train(
+        torch, device, cfg, lambda i: stream.next_batch(), n_steps, "ssm",
+        sass, mhz, None if small else SSM_PARAMS,
+        f"; Di {cfg.expand * cfg.d_model}, ssm_state {cfg.ssm_state}, conv "
+        f"{cfg.ssm_conv}, dt_rank {ssm._dt_rank(cfg)}")
+    params = _llm_step0_by_hand(torch, device, cfg, b0, records, n_params,
+                                "ssm")
+    prompt = _serve_loop(torch, device, cfg, params, "ssm")
+    got, ref_logits, max_err, _ = _decode_vs_forward(
+        torch, device, cfg, params, prompt)
+    top = float(ref_logits.abs().max())
+    per_pos = (got - ref_logits).abs().amax(dim=(0, 2)) / top
+    agree = float((got.argmax(-1) == ref_logits.argmax(-1)).float().mean())
+    _log(f"  decode vs forward at 32 positions (bf16; forward rounds the "
+         f"conv and SiLU outputs, decode does not): max |diff| {max_err:.4f}"
+         f" = {max_err / top:.4g} of max |logit| {top:.3f} (bound "
+         f"{SSM_DECODE_REL}); by position {float(per_pos[0]):.3g} at 0, "
+         f"{float(per_pos[15]):.3g} at 15, {float(per_pos[31]):.3g} at 31; "
+         f"argmax agreement {agree:.4f}")
+    _check(max_err <= SSM_DECODE_REL * top, "ssm decode differs from "
+           "forward beyond SSM_DECODE_REL")
+    del got, ref_logits
+    _ssm_scan_times(torch, device, params, cfg, small)
+    del params
+    _family_card_vs_cpu(torch, device, full.reduced(),
+                        f"{SSM_ARCH} reduced", decode_steps=6)
+    _log(f"  phase 5n: {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+def phase_audio(torch, device, small: bool, sass: dict, mhz) -> dict:
+    """Phase 5o: the audio family (whisper-large-v3 at full depth): the
+    trainer's approx steps on ``registry.make_batch``'s frames and tokens
+    with K0 on the uplink, step 0 by hand, the server on the full cache,
+    and the reduced config on the card against the CPU (forward, gradients
+    and decode steps). Returns the trainer's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core import prng
+    from repro_torch.models import registry as R
+
+    full = get_config(AUDIO_ARCH)
+    cfg = (full.reduced(d_model=256, vocab_size=1024) if small else full)
+    _log(f"== phase 5o: the audio family ({AUDIO_ARCH}, "
+         f"{'reduced (rehearsal)' if small else 'published widths'}, "
+         f"{cfg.encoder_layers} + {cfg.n_layers} layers)")
+    t_phase = time.perf_counter()
+    batch, seq, n_steps = (2, 16, 1) if small else (8, 256, 3)
+    shape = InputShape("chip_smoke", seq, batch, "train")
+    batch_keys = prng.split(prng.PRNGKey(1, device=device), n_steps)
+
+    def next_batch(i):  # frames, tokens and labels from registry.make_batch
+        return R.make_batch(cfg, shape, batch_keys[i])
+
+    records, b0, n_params, counts = _llm_train(
+        torch, device, cfg, next_batch, n_steps, "audio", sass, mhz,
+        None if small else AUDIO_PARAMS,
+        f"; {cfg.encoder_seq} float32 frames of width {cfg.d_model} into "
+        f"the encoder (float32 against the bf16 weights, as jnp promotes), "
+        f"{seq} tokens into the decoder, the head tied")
+    params = _llm_step0_by_hand(torch, device, cfg, b0, records, n_params,
+                                "audio")
+    # No decode against forward: decode cross-attends to the zero cache
+    # init_cache makes, as in the reference (ROADMAP Queue 3).
+    _serve_loop(torch, device, cfg, params, "audio")
+    del params
+    _family_card_vs_cpu(torch, device, full.reduced(),
+                        f"{AUDIO_ARCH} reduced", decode_steps=6)
+    _log(f"  phase 5o: {time.perf_counter() - t_phase:.1f} s")
     return counts
 
 
@@ -3573,7 +3777,8 @@ def main(argv=None) -> int:
         for k, v in llm_launches.items():
             launches[k] += v
         phase_server(torch, device, small)
-        for phase in (phase_moe, phase_vlm, phase_hybrid):
+        for phase in (phase_moe, phase_vlm, phase_hybrid, phase_ssm,
+                      phase_audio):
             for k, v in phase(torch, device, small, sass, mhz).items():
                 launches[k] += v
         k0_row["launches"] = launches["k0"]

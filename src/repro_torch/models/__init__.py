@@ -1,3 +1,5 @@
-"""Models of the port: the dense and moe decoder families
-(``transformer``, with the expert FFN in ``moe``), their building blocks
-and the family registry."""
+"""Models of the port: every family of the reference (``transformer``:
+dense, moe, vlm, hybrid, with the expert FFN in ``moe``; ``ssm``; ``audio``),
+their building blocks and the family registry."""
+
+from repro_torch.models import audio, ssm  # noqa: F401

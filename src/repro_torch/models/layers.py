@@ -23,7 +23,7 @@ import torch.nn.functional as F
 from repro_torch.core import prng
 
 __all__ = [
-    "dtype_of", "dense_init", "embed_init", "rmsnorm",
+    "dtype_of", "dense_init", "embed_init", "rmsnorm", "layernorm", "dot",
     "rope_freqs", "apply_rope", "swiglu", "gelu_mlp", "sinusoidal_positions",
     "unstack_tree", "maybe_shard",
 ]
@@ -56,6 +56,27 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps) * (1.0 + scale.to(torch.float32))
     return out.to(x.dtype)
+
+
+def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              eps: float = 1e-5):
+    """LayerNorm in float32: the mean, then the mean of the squared
+    deviations (``jnp.var``), cast back to ``x.dtype``."""
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    c = xf - mu
+    var = torch.mean(c * c, dim=-1, keepdim=True)
+    out = c * torch.rsqrt(var + eps)
+    out = out * scale.to(torch.float32) + bias.to(torch.float32)
+    return out.to(x.dtype)
+
+
+def dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in the promoted dtype, as ``jnp.einsum`` types it: a
+    float32 activation against bf16 weights upcasts the weights (exact)
+    and gives float32; ``torch.matmul`` refuses mixed dtypes."""
+    t = torch.promote_types(x.dtype, w.dtype)
+    return torch.matmul(x.to(t), w.to(t))
 
 
 def rope_freqs(head_dim: int, fraction: float, theta: float,
@@ -101,10 +122,11 @@ def swiglu(x: torch.Tensor, wi: torch.Tensor, wg: torch.Tensor,
 
 def gelu_mlp(x: torch.Tensor, wi: torch.Tensor, bi, wo: torch.Tensor, bo):
     """GELU FFN with biases; GELU is the tanh form, ``jax.nn.gelu``'s
-    default."""
-    h = torch.matmul(x, wi) + bi
+    default. A float32 ``x`` against bf16 weights runs in float32
+    (:func:`dot`)."""
+    h = dot(x, wi) + bi
     h = F.gelu(h.to(torch.float32), approximate="tanh").to(x.dtype)
-    return torch.matmul(h, wo) + bo
+    return dot(h, wo) + bo
 
 
 def sinusoidal_positions(max_len: int, dim: int, device=None) -> torch.Tensor:

@@ -1,11 +1,11 @@
 """Family -> implementation dispatch + input specs for every shape (port of
 ``repro.models.registry``).
 
-The port runs the ``dense``, ``moe``, ``vlm`` and ``hybrid`` families
-(``models/transformer.py``, with ``models/moe.py``). The others raise
-``NotImplementedError`` naming the ROADMAP item that ports them: ``ssm``
-(``models/ssm.py``) and ``audio`` (``models/audio.py``), as does a moe
-config with ``moe_impl="expert_parallel"``. The shape helpers
+The port runs every family: ``dense``, ``moe``, ``vlm`` and ``hybrid``
+(``models/transformer.py``, with ``models/moe.py``), ``ssm``
+(``models/ssm.py``) and ``audio`` (``models/audio.py``). A moe config with
+``moe_impl="expert_parallel"`` raises ``NotImplementedError`` naming the
+ROADMAP item that ports it (``transformer.check_family``). The shape helpers
 (``uses_ring_cache``, ``cache_len_for``, ``supports_shape``,
 ``input_specs``) answer for every family, as they are data.
 """
@@ -18,18 +18,13 @@ import torch
 
 from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.core import prng
-from repro_torch.models import transformer
+from repro_torch.models import audio, ssm, transformer
 
 __all__ = [
     "TensorSpec", "family_module", "init_params", "loss_fn", "forward",
     "init_cache", "decode_step", "uses_ring_cache", "cache_len_for",
     "supports_shape", "input_specs", "make_batch",
 ]
-
-_LATER = {
-    "ssm": "ROADMAP Queue 1, item 10 (models/ssm.py)",
-    "audio": "ROADMAP Queue 1, item 10 (models/audio.py)",
-}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,10 +41,10 @@ def family_module(cfg: ModelConfig):
     if cfg.family in ("dense", "moe", "vlm", "hybrid"):
         transformer.check_family(cfg)
         return transformer
-    if cfg.family in _LATER:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet: "
-            f"{_LATER[cfg.family]}")
+    if cfg.family == "ssm":
+        return ssm
+    if cfg.family == "audio":
+        return audio
     raise ValueError(cfg.family)
 
 

@@ -396,12 +396,12 @@ def _rec_block(x, blk, cfg, positions, window):
     return _rglru_block_fwd(x, blk, cfg)
 
 
-def _run(fn, x, pl, cfg, positions, window):
-    """One layer, under ``torch.utils.checkpoint`` when gradients are on."""
+def _run(fn, *args):
+    """One layer, ``fn(*args)``, under ``torch.utils.checkpoint`` when
+    gradients are on."""
     if torch.is_grad_enabled():
-        return checkpoint(fn, x, pl, cfg, positions, window,
-                          use_reentrant=False)
-    return fn(x, pl, cfg, positions, window)
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def forward(params: Params, batch: dict, cfg):

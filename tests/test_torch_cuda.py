@@ -1256,6 +1256,56 @@ def test_hybrid_and_vlm_reduced_card_vs_cpu(cuda_device, arch, kw):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "whisper-large-v3"])
+def test_ssm_and_audio_reduced_card_vs_cpu(cuda_device, arch):
+    """The ssm family (the selective scan) and the audio family (float32
+    frames into the encoder, cross-attention, the tied head) at
+    ``cfg.reduced()`` widths, float32, the same weights on the card and the
+    CPU: the loss within 2e-6, the gradients within 1e-5 of each leaf's
+    largest, the logits and 6 decode steps' logits within 2e-6 of their
+    largest for audio and 1e-5 for the ssm, whose state carries each
+    position's rounding down the sequence (the CPU tests bound its decode
+    so)."""
+    from repro_torch.core import prng as P
+    from repro_torch.launch import steps as TST
+    from repro_torch.models import registry as R
+
+    cfg = _small_family(arch)
+    p_cpu = R.init_params(P.PRNGKey(0), cfg)
+    g = torch.Generator().manual_seed(5)
+    batch = {k: torch.randint(0, cfg.vocab_size, (2, 24), generator=g,
+                              dtype=torch.int32) for k in ("tokens", "labels")}
+    if cfg.family == "audio":
+        batch["frames"] = torch.randn((2, cfg.encoder_seq, cfg.d_model),
+                                      generator=g)
+    out = []
+    for dev in (cuda_device, torch.device("cpu")):
+        p = TT.tree_map(lambda t: t.to(dev), p_cpu)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        with torch.no_grad():
+            logits, _ = R.forward(p, b, cfg)
+        loss, grads = TST.value_and_grad(cfg, p, b)
+        cache, dec = R.init_cache(cfg, 2, 6, device=dev), []
+        for t in range(6):
+            lg, cache = R.decode_step(p, cache, b["tokens"][:, t:t + 1], t,
+                                      cfg)
+            dec.append(lg.cpu())
+        out.append((float(loss), logits.cpu(),
+                    [t.cpu() for t in TT.tree_flatten(grads)[0]], dec))
+    (la, ga, gra, da), (lb, gb, grb, db) = out
+    assert ga.shape == (2, 24, cfg.vocab_size)
+    assert abs(la - lb) <= 2e-6
+    rel = 1e-5 if cfg.family == "ssm" else 2e-6
+    assert float((ga - gb).abs().max()) <= rel * float(gb.abs().max())
+    for x, y in zip(da, db):
+        assert float((x - y).abs().max()) <= rel * float(y.abs().max())
+    assert len(gra) == len(grb)
+    for x, y in zip(gra, grb):
+        assert float((x - y).abs().max()) <= 1e-5 * (
+            float(y.abs().max()) or 1.0)
+
+
+@pytest.mark.cuda
 def test_k0_on_a_hybrid_row_matches_plain(cuda_device):
     """``transmit_pytree`` of a hybrid param tree (5 layers: one group and
     a list tail of 2 rec blocks) on the kernel path: one K0 launch over

@@ -6,10 +6,12 @@ Grades, as the ROADMAP defines them:
 * **Exact**: every ``ModelConfig`` (all ten architectures, reduced or
   not), ``INPUT_SHAPES``, ``input_specs`` shapes and dtypes for every
   architecture and shape, ``TokenStream`` batches, the integer draws of
-  ``make_batch``, and the NotImplementedError of every family the port
-  does not run yet (the moe, vlm and hybrid families are in
-  ``test_torch_moe.py``, ``test_torch_vlm.py`` and
-  ``test_torch_hybrid.py``).
+  ``make_batch``, the NotImplementedError of the expert-parallel moe
+  dispatch the port does not run yet, and the registry's modules for the
+  ssm and audio families (the moe, vlm, hybrid, ssm and audio families
+  are in ``test_torch_moe.py``, ``test_torch_vlm.py``,
+  ``test_torch_hybrid.py``, ``test_torch_ssm.py`` and
+  ``test_torch_audio.py``).
 * **Bounded** (bound in each test): ``init_params(PRNGKey(0))`` leaves
   (the normals go through ``torch.erfinv``, not XLA's ``erf_inv``);
   ``rmsnorm``, ``apply_rope``, the attentions and the decode attends in
@@ -136,18 +138,31 @@ def test_input_specs_equal(arch, shape_name):
                          + ["expert_parallel:" + a for a in JC.ARCH_IDS
                             if JC.get_config(a).family == "moe"])
 def test_other_families_raise(arch):
-    """The families not ported yet, and a moe config's expert-parallel
-    dispatch (the moe, vlm and hybrid families run:
-    ``test_torch_moe.py``, ``test_torch_vlm.py``,
-    ``test_torch_hybrid.py``)."""
+    """A moe config's expert-parallel dispatch still raises naming its
+    ROADMAP item; the ssm and audio families, which raised before, now
+    run: the registry returns ``models/ssm.py`` / ``models/audio.py`` and
+    ``init_params`` builds the reference's tree (the moe, vlm, hybrid, ssm
+    and audio families are held against the reference in
+    ``test_torch_moe.py``, ``test_torch_vlm.py``, ``test_torch_hybrid.py``,
+    ``test_torch_ssm.py`` and ``test_torch_audio.py``)."""
+    from repro_torch.models import audio, ssm
+
     name = arch.split(":")[-1]
     cfg = TC.get_config(name).reduced()
     if arch.startswith("expert_parallel:"):
         cfg = dataclasses.replace(cfg, moe_impl="expert_parallel")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TR.init_params(P.PRNGKey(0), cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TR.family_module(cfg)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            TR.init_params(P.PRNGKey(0), cfg)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            TR.family_module(cfg)
+        return
+    assert TR.family_module(cfg) is {"ssm": ssm, "audio": audio}[cfg.family]
+    params = TR.init_params(P.PRNGKey(0), cfg)
+    leaves, _ = tree_flatten(params)
+    want = jax.eval_shape(lambda: JR.init_params(
+        jax.random.PRNGKey(0), JC.get_config(name).reduced()))
+    assert [tuple(t.shape) for t in leaves] == [
+        tuple(a.shape) for a in jax.tree_util.tree_leaves(want)]
 
 
 @pytest.mark.parametrize("seed,vocab,seq,batch",
