@@ -8,10 +8,11 @@ Drives the port (``src/repro_torch``) through its main path — the paper's
 FedSGD rounds over the approximate uplink, then the link-adaptation,
 FedAvg, downlink and sparse-uplink rounds built on it, with the
 observability sinks attached, the buffered asynchronous engine's
-waves, the LLM trainer and server at qwen2-1.5b's full width, and the
+waves, the LLM trainer and server at qwen2-1.5b's full width, the
 moe, vlm, hybrid, ssm and audio families at phi3.5-moe's, pixtral-12b's,
 recurrentgemma-2b's, falcon-mamba-7b's and whisper-large-v3's published
-widths — and
+widths, recurrentgemma-2b at full depth through K0 on a row past 2**31 -
+1 words, the optimizers, and the meta-device dry run — and
 holds both
 CUDA kernels against their plain PyTorch versions. Phases, each of which
 fails the run
@@ -182,8 +183,9 @@ fails the run
    position, bit for bit), within ``DECODE_RTOL`` and ``DECODE_ULPS``.
 5k. The moe family: phi3.5-moe-42b-a6.6b at its published widths (d_model
    4,096, 32 heads, 8 KV heads, 16 experts top-2, ``moe_d_ff`` 6,400,
-   vocab 32,064, bf16) cut to one layer (1,562,980,352 params, under K0's
-   2**31 - 1 words), from ``PRNGKey(0)``: 3 approx steps (QPSK 10 dB
+   vocab 32,064, bf16) cut to one layer (1,562,980,352 params; the cut
+   dates from K0's old 2**31 - 1-word limit), from ``PRNGKey(0)``: 3
+   approx steps (QPSK 10 dB
    Rayleigh on the kernel path, lr 0.1, a world of one) of
    ``make_train_step_approx`` on ``train.main``'s key schedule and
    ``TokenStream(32064, 256, 8)`` (2,048 tokens, capacity 385 an
@@ -244,6 +246,34 @@ fails the run
    reference, so no decode-against-forward check); ``cfg.reduced()`` in
    float32 on the card against the CPU, frames and 6 decode steps
    included.
+5p. K0 on a row past 2**31 - 1 words: recurrentgemma-2b at its
+   published widths and full depth (26 layers: 8 (rec, rec, attn) groups
+   and a tail of 2 rec blocks, 3,549,795,840 params, bf16): 3 approx
+   steps on ``TokenStream(256000, 256, 8)`` as in 5k, K0 once a step on
+   the 3,549,796,352-word padded row, peak memory a step; step 0 by hand
+   as in 5k with tiles 2,097,151 and 2,097,152 (either side of word
+   2**31) among the sampled ones; the server; K0 alone on a seeded row of
+   the same length, timed (median of 3), with its bound and issue-rate
+   floor, every tile against one pass of the plain version (0 differing
+   words) and its int32 count equal to the plain version's modulo 2**32,
+   past 2**32.
+5q. The optimizers at qwen2-1.5b's full width (1,777,088,000 bf16
+   params): 3 updates each of ``momentum_sgd`` and ``adam`` under
+   ``warmup_cosine`` on gradients drawn from a seed, timed with CUDA
+   events, peak memory; the sampled leaves ``OPTIM_SAMPLED`` against the
+   same updates on the CPU within ``OPTIM_REL`` of the leaf's largest
+   value; the int32 step.
+5r. The dry run and the world of one: ``python -m
+   repro_torch.launch.dryrun --all`` on the meta device, started in its
+   own process (no card) after phase 2 so that it runs beside the card's
+   phases: every arch x shape record ``ok`` or a ``supports_shape`` skip;
+   the total parameter count of each config phases 5i and 5k-5p built,
+   from the meta device, equal to the count the phase measured; model
+   FLOPs (``roofline.model_flops`` of the step's batch) over each LLM
+   phase's fastest grad span, as TFLOP/s and a share of the card's bf16
+   dense peak; phi3.5-moe reduced with ``moe_impl="expert_parallel"`` at
+   a world of one: a train step and the prefill step equal the dense
+   dispatch's bit for bit.
 6. Times at the main-path shape (C=100, N=22,528, QPSK, f32; K0 on the
    first client's row, beside K1 at C=1 on it):
    kernel and plain version with CUDA events (median of single launches
@@ -256,7 +286,7 @@ fails the run
    round 0's ``iot-lowrate`` uncoded buckets), one padded tile a client,
    beside the bound of the ``k`` words.
 7. The result: a JSON line of the kernels (``launches`` counts phase 5's,
-   5e's, 5f's, 5g's, 5h's, 5i's and 5k's to 5o's runs; K0's row is the
+   5e's, 5f's, 5g's, 5h's, 5i's and 5k's to 5p's runs; K0's row is the
    trainer's row from 5i: its time, plain time, bound and error),
    ``nvidia-smi``'s line, and as the last line ``{"ok": true, "device":
    {...}}``.
@@ -2383,6 +2413,9 @@ def phase_buffered(torch, device, small: bool, main_runs: dict,
 
 LLM_ARCH = "qwen2-1.5b"
 LLM_PARAMS = 1_777_088_000
+# Each LLM phase's trainer run, for phase 5r: (phase, cfg, measured
+# parameter count, batch, seq, the fastest step's grad span in seconds).
+LLM_RUNS = []
 COUNTER_WRAP_TILE = 262_144  # 2**32 symbols / (1024 words x 16 symbols)
 PLAIN_CHUNK_TILES = 2048  # tiles per plain-version chunk (~9 GB of temps)
 # Decode against forward in bf16: the reference test's rtol
@@ -2548,6 +2581,8 @@ def phase_trainer(torch, device, small: bool, sass: dict, mhz) -> tuple:
     _log(f"  init_params: {n_params:,} params in {t_init:.2f} s, peak "
          f"{_gib(torch, device):.3f} GiB")
     _check(small or n_params == LLM_PARAMS, f"{n_params} params")
+    LLM_RUNS.append(("5i", cfg, n_params, batch, seq, min(
+        r["phase_s"].get("grad", 0) for r in records)))
     b0 = TokenStream(cfg.vocab_size, seq, batch).next_batch()
     local = {k: torch.as_tensor(v).to(device) for k, v in b0.items()}
     loss0, grads = steps.value_and_grad(cfg, params, local)
@@ -2795,7 +2830,8 @@ POPCOUNT_CHUNK = 2**26  # words per chunk of the row's popcount
 
 def _moe_cfg(small: bool):
     """phi3.5-moe at its published widths with the depth cut to one layer
-    (the row must stay under K0's 2**31 - 1 words); on the CPU rehearsal
+    (cut when K0 refused rows past 2**31 - 1 words; phase 5p now runs such
+    a row); on the CPU rehearsal
     the trainer's ``--reduced`` widths at one layer."""
     from repro_torch.configs import get_config
 
@@ -2954,6 +2990,8 @@ def _llm_train(torch, device, cfg, next_batch, n_steps: int, label: str,
     want = n_steps if device.type == "cuda" else 0
     _check(counts == {"k0": want, "k1": 0, "k2": 0},
            f"{label} trainer launched {counts}, expected {want} K0 launches")
+    LLM_RUNS.append((label, cfg, n_params) + tuple(b0["tokens"].shape) + (
+        min(r["phase_s"].get("grad", 0) for r in records),))
     tiles = -(-n_params // 1024)
     b = _bound(1, tiles * 1024, 2, "rayleigh", 32, "k1")
     prev = 0
@@ -2990,13 +3028,13 @@ def _llm_train(torch, device, cfg, next_batch, n_steps: int, label: str,
 
 
 def _llm_step0_by_hand(torch, device, cfg, b0, records, n_words: int,
-                       label: str):
+                       label: str, extra_tiles=()):
     """Step 0 by hand on the initial weights: its loss (the trainer's), K0
     on its gradient under the trainer's key (rank 0's shard key) with the
     trainer's errors, the row's flipped bits against the kernel's int32
-    count modulo 2**32, and tiles 0, 262,143, 262,144 and the last against
-    the plain version on the card and the CPU. Returns the initial
-    params."""
+    count modulo 2**32, and tiles 0, 262,143, 262,144, ``extra_tiles``
+    and the last against the plain version on the card and the CPU.
+    Returns the initial params."""
     from repro_torch.core import prng, transport
     from repro_torch.kernels import approx_channel as ac
     from repro_torch.kernels import ops, ref
@@ -3038,7 +3076,7 @@ def _llm_step0_by_hand(torch, device, cfg, b0, records, n_words: int,
                         device=device)
     tiles = -(-n_words // 1024)
     sampled = sorted({0, COUNTER_WRAP_TILE - 1, COUNTER_WRAP_TILE,
-                      tiles - 1} & set(range(tiles)))
+                      tiles - 1, *extra_tiles} & set(range(tiles)))
     for t in sampled:
         lo, hi = t * 1024, min((t + 1) * 1024, n_words)
         xt = torch.nn.functional.pad(_flat_words(torch, g_leaves, lo, hi),
@@ -3570,6 +3608,320 @@ def phase_audio(torch, device, small: bool, sass: dict, mhz) -> dict:
     return counts
 
 
+# --------------------------- phase 5p: K0 on a row past 2**31 - 1 words
+
+
+HYBRID_FULL_PARAMS = 3_549_795_840  # 26 layers: 8 groups and a tail of 2
+# Either side of word 2**31: tile 2,097,152 starts there.
+WORD_2_31_TILES = (2**31 // 1024 - 1, 2**31 // 1024)
+
+
+def _k0_long_row(torch, device, n_words: int, sass: dict, mhz, small: bool):
+    """K0 alone on a seeded row of ``n_words`` words (padded to whole
+    tiles): its time (median of 3, CUDA events), bound and issue-rate
+    floor, and every tile against one pass of the plain version tile range
+    by tile range, with the error counts equal modulo 2**32."""
+    from repro_torch.core import prng
+    from repro_torch.kernels import approx_channel as ac
+    from repro_torch.kernels import ops
+
+    tcfg, clock = _llm_tcfg(), Clock(torch, device)
+    tiles = -(-n_words // 1024)
+    g = torch.Generator(device=device).manual_seed(24)
+    xp = torch.randn(tiles * 1024, generator=g, device=device).mul_(1e-3)
+    seed = ops._seed_from_key(prng.PRNGKey(24, device=device))
+    npow = torch.tensor(tcfg.channel.noise_power, dtype=torch.float32,
+                        device=device)
+    gain = torch.tensor(tcfg.channel.large_scale_gain, dtype=torch.float32,
+                        device=device)
+    kw = dict(bits_per_symbol=2, fading="rayleigh", clamp_mask=0xBFFFFFFF,
+              word_bits=32)
+    k0 = lambda: ac.approx_channel_kernel(xp, seed, npow, gain, **kw)  # noqa: E731
+    reps = 3 if device.type == "cuda" else 1
+    ms = clock.median_ms(k0, reps, warmup=1)
+    _reset_peak(torch, device)
+    out, errs = k0()
+    peak = _gib(torch, device)
+    diff, max_errs, errs_plain, plain_ms = _k0_vs_plain(
+        torch, device, xp, {"k0": out}, seed, npow, gain,
+        f"K0 alone, row of {tiles * 1024:,} words")
+    _check(diff["k0"] == 0 and (errs_plain - int(errs)) % 2**32 == 0,
+           f"K0 long row: {diff['k0']} words differ, errors {int(errs)} vs "
+           f"plain {errs_plain}")
+    b = _bound(1, tiles * 1024, 2, "rayleigh", 32, "k1")
+    side = "past" if tiles * 1024 > 2**31 - 1 else "under"
+    _log(f"  K0 alone at N = {tiles * 1024:,} ({tiles:,} tiles, {side} "
+         f"2**31 - 1 = {2**31 - 1:,}): {ms:.2f} ms (median of {reps}), bound "
+         f"{b['bound_ms']:.2f} ms ({b['bound_by']}: {b['bytes'] / 1e9:.2f} "
+         f"GB -> {b['bytes_ms']:.2f} ms, {b['ops'] / 1e12:.2f} T ops -> "
+         f"{b['ops_ms']:.2f} ms); plain {plain_ms:.1f} ms in all; the "
+         f"launch's peak {peak:.3f} GiB")
+    _log(f"  K0 alone: {errs_plain:,} bit errors by the plain version "
+         f"(Python int; BER {errs_plain / (tiles * 1024 * 32):.4f}; "
+         f"{'past' if errs_plain >= 2**32 else 'under'} 2**32 = "
+         f"{2**32:,}); the kernel's int32 count {int(errs):,} equals it "
+         f"modulo 2**32")
+    _check(small or errs_plain >= 2**32, "the long row's errors did not "
+           "pass 2**32")
+    if sass and mhz:
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        floor = _issue_floor_ms(tiles * 1024 * 16, sass["k0"], sms, mhz)
+        _log(f"  K0 alone: issue-rate floor {floor:.2f} ms "
+             f"({sass['k0']['total']} instructions a symbol); kernel at "
+             f"{floor / ms:.0%} of it")
+    return ms, plain_ms, b, max_errs["k0"]
+
+
+def phase_long_row(torch, device, small: bool, sass: dict, mhz) -> dict:
+    """Phase 5p: recurrentgemma-2b at its published 26 layers, a row past
+    2**31 - 1 words: the trainer's approx steps with K0 once a step, step
+    0 by hand (tiles either side of word 2**31 included), the server, and
+    K0 alone on a row of the same length against the plain version over
+    every tile. Returns the trainer's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenStream
+
+    full = get_config(HYBRID_ARCH)
+    cfg = (full.reduced(n_layers=5, d_model=256, vocab_size=1024) if small
+           else full)
+    G, tail_n = divmod(cfg.n_layers, cfg.attn_period)
+    _log(f"== phase 5p: K0 past 2**31 - 1 words ({HYBRID_ARCH}, "
+         f"{'reduced (rehearsal)' if small else 'published widths'}, "
+         f"{cfg.n_layers} layers)")
+    t_phase = time.perf_counter()
+    batch, seq, n_steps = (2, 16, 1) if small else (8, 256, 3)
+    stream = TokenStream(cfg.vocab_size, seq, batch)
+    records, b0, n_params, counts = _llm_train(
+        torch, device, cfg, lambda i: stream.next_batch(), n_steps,
+        "hybrid, full depth", sass, mhz,
+        None if small else HYBRID_FULL_PARAMS,
+        f"; {G} (rec, rec, attn) groups and a tail of {tail_n} rec blocks; "
+        f"{n_steps} steps")
+    _check(small or n_params > 2**31 - 1,
+           f"{n_params} params do not pass 2**31 - 1 words")
+    params = _llm_step0_by_hand(torch, device, cfg, b0, records, n_params,
+                                "hybrid, full depth", WORD_2_31_TILES)
+    _serve_loop(torch, device, cfg, params, "hybrid, full depth")
+    del params
+    _k0_long_row(torch, device, n_params, sass, mhz, small)
+    _log(f"  phase 5p: {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+# --------------------------------------- phase 5q: the optimizers at width
+
+
+def _leaf_paths(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaf_paths(tree[k], f"{prefix}/{k}" if prefix else k)
+    else:
+        yield prefix, tree
+
+
+OPTIM_SAMPLED = ("final_norm", "layers/attn/bq", "layers/attn/wk",
+                 "layers/ln2")
+# Card against CPU, relative to the leaf's largest value: the CPU tests'
+# bound for the reference under jax.jit (tests/test_torch_optim.py); the
+# eager updates agreed bit for bit there.
+OPTIM_REL = 2.0**-20
+
+
+def _adam_roots(torch, device, state) -> None:
+    """Why ``adam`` takes its root in float64: PyTorch's float32 ``sqrt``
+    on the card and on the CPU against numpy's (IEEE, correctly rounded,
+    as XLA's is on normal inputs), on the second moments of one sampled
+    leaf, and ``adam._sqrt_rn`` on the card against it."""
+    import numpy as np
+
+    from repro_torch.optim.adam import _sqrt_rn
+
+    v = dict(_leaf_paths(state["v"]))["layers/attn/wk"].reshape(-1)
+    v = v / float(v.abs().max().clamp(min=1e-30))
+    want = torch.from_numpy(np.sqrt(v.cpu().numpy())).view(torch.int32)
+
+    def differ(root):
+        return int((root.cpu().view(torch.int32) != want).sum())
+
+    rn = differ(_sqrt_rn(v))
+    _check(rn == 0, f"adam's float64 root differs from the correctly "
+           f"rounded float32 root on {rn} values")
+    _log(f"  float32 sqrt of {v.numel():,} scaled second moments against "
+         f"numpy's correctly rounded root: torch.sqrt on the "
+         f"{device.type} {differ(torch.sqrt(v)):,} differ, on the CPU "
+         f"{differ(torch.sqrt(v.cpu())):,}; the float64 root adam takes 0")
+
+
+def phase_optim(torch, device, small: bool) -> None:
+    """Phase 5q: ``momentum_sgd`` and ``adam`` under ``warmup_cosine`` at
+    qwen2-1.5b's full width (bf16 params), 3 updates each on gradients
+    drawn from a seed, timed with CUDA events; sampled leaves against the
+    same updates on the CPU."""
+    from repro_torch import optim
+    from repro_torch.core import prng, transport
+    from repro_torch.models import registry as R
+
+    cfg = _llm_cfg(small)
+    _log(f"== phase 5q: the optimizers at {LLM_ARCH}'s "
+         f"{'reduced widths (rehearsal)' if small else 'full width'}")
+    t_phase = time.perf_counter()
+    clock = Clock(torch, device)
+    params0 = R.init_params(prng.PRNGKey(0, device=device), cfg)
+    n = sum(p.numel() for p in transport.tree_flatten(params0)[0])
+    _check(small or n == LLM_PARAMS, f"{n} params")
+    for name in ("momentum_sgd", "adam"):
+        sched = optim.warmup_cosine(0.1 if name == "momentum_sgd" else 1e-3,
+                                    1, 3)
+        opt = getattr(optim, name)(sched)
+        params, state = params0, opt.init(params0)
+        cpu_p = {k: v.cpu() for k, v in _leaf_paths(params0)
+                 if k in OPTIM_SAMPLED}
+        cpu_opt = getattr(optim, name)(sched)
+        cpu_s = cpu_opt.init(cpu_p)
+        g = torch.Generator(device=device).manual_seed(5)
+        times = []
+        _reset_peak(torch, device)
+        for _ in range(3):
+            grads = transport.tree_map(lambda p: (torch.randn(
+                p.shape, generator=g, device=device) * 1e-2).to(p.dtype),
+                params)
+            (params, state), ms = _timed(
+                torch, device, lambda: opt.update(grads, state, params))
+            times.append(ms)
+            cg = {k: v.cpu() for k, v in _leaf_paths(grads)
+                  if k in OPTIM_SAMPLED}
+            cpu_p, cpu_s = cpu_opt.update(cg, cpu_s, cpu_p)
+            del grads
+        peak = _gib(torch, device)
+        worst, differing = 0.0, 0
+        for k, v in _leaf_paths(params):
+            if k not in OPTIM_SAMPLED:
+                continue
+            a, b = v.cpu().to(torch.float32), cpu_p[k].to(torch.float32)
+            differing += int((a != b).sum())
+            top = max(float(b.abs().max()), 1e-30)
+            worst = max(worst, float((a - b).abs().max()) / top)
+        _check(all(math.isfinite(v) for v in times) and worst <= OPTIM_REL
+               and state["step"].dtype == torch.int32
+               and int(state["step"]) == 3,
+               f"{name}: card vs CPU {worst:.3g} of the largest (bound "
+               f"{OPTIM_REL:.3g}), step {state['step']}")
+        if name == "adam":
+            _adam_roots(torch, device, state)
+        _log(f"  {name} (warmup_cosine, 3 updates of {n:,} params): "
+             f"{', '.join(f'{t:.2f}' for t in times)} ms (CUDA events"
+             f"{'' if device.type == 'cuda' else ': host clock'}); peak "
+             f"{peak:.3f} GiB; sampled leaves {', '.join(OPTIM_SAMPLED)} "
+             f"against the CPU: {differing} differing values, largest "
+             f"difference {worst:.3g} of the leaf's largest (bound "
+             f"{OPTIM_REL:.3g})")
+        del params, state
+    _log(f"  phase 5q: {time.perf_counter() - t_phase:.1f} s")
+
+
+# ------------------------------ phase 5r: the dry run and the world of one
+
+
+BF16_PEAK = 989e12  # H100 SXM dense bf16 tensor-core FLOP/s, data sheet
+DRYRUN_OUT = ROOT / "build" / "chip_smoke_dryrun"
+
+
+def start_dryrun():
+    """``python -m repro_torch.launch.dryrun --all`` on the meta device in
+    a process of its own (no card: CUDA_VISIBLE_DEVICES is empty), so it
+    runs beside the card's phases. Returns the process."""
+    shutil.rmtree(DRYRUN_OUT, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="")
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+         "--out", str(DRYRUN_OUT)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+
+
+def phase_dryrun(torch, device, small: bool, proc) -> None:
+    """Phase 5r: the dry run's records (every arch x shape ``ok`` or a
+    ``supports_shape`` skip); the parameter counts of the configs the LLM
+    phases built, from the meta device, against what they measured; the
+    expert-parallel dispatch at a world of one against the dense one;
+    model FLOPs over each LLM phase's fastest grad span."""
+    from repro_torch.configs import ARCH_IDS, INPUT_SHAPES, get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core import prng, transport
+    from repro_torch.launch import roofline, steps
+    from repro_torch.launch.mesh import world_mesh
+    from repro_torch.models import registry as R
+    from repro_torch.optim.sgd import sgd
+
+    _log("== phase 5r: the dry run and the world of one")
+    t_phase = time.perf_counter()
+    try:
+        log, _ = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    _check(proc.returncode == 0, f"dryrun exited {proc.returncode}: "
+           f"{log[-2000:]}")
+    # a record is written for each combination that runs; a skip writes none
+    recs = [json.loads(f.read_text()) for f in sorted(
+        DRYRUN_OUT.glob("*.json"))]
+    runs = {(a, sh) for a in ARCH_IDS for sh in INPUT_SHAPES
+            if R.supports_shape(get_config(a), INPUT_SHAPES[sh])[0]}
+    _check({(r["arch"], r["shape"]) for r in recs} == runs
+           and all(r["status"] == "ok" for r in recs),
+           f"dry run: {len(recs)} records, not one 'ok' for each of the "
+           f"{len(runs)} supported combinations")
+    skips = len(ARCH_IDS) * len(INPUT_SHAPES) - len(runs)
+    _log(f"  dryrun --all (meta device, world 1, its own process beside the "
+         f"card's phases): {len(recs)} ok, {skips} supports_shape "
+         f"skip(s) (\"[dryrun] SKIP\" lines: "
+         f"{log.count('[dryrun] SKIP')}); e.g. " + "; ".join(
+             f"{r['arch']} x {r['shape']}: flops/rank "
+             f"{r['flops_per_device']:.4g}, args "
+             f"{r['memory']['argument_bytes'] / 2**30:.2f} GiB"
+             for r in recs if r["status"] == "ok"
+             and r["shape"] == "train_4k")
+         )
+    for label, cfg, n_meas, b, sq, grad_s in LLM_RUNS:
+        n_meta = roofline.n_active_params(cfg)[1]
+        _check(n_meta == n_meas, f"{label}: {n_meta} params on the meta "
+               f"device, {n_meas} measured")
+        mf = roofline.model_flops(cfg, InputShape("step", sq, b, "train"))
+        rate = mf / grad_s if grad_s else float("nan")
+        _log(f"  {label} ({cfg.name}, {cfg.n_layers} layers): "
+             f"{n_meas:,} params = the meta count; model FLOPs "
+             f"{mf:.4g} (6 x {roofline.n_active_params(cfg)[0]:.4g} active"
+             f" x {b} x {sq} tokens) over the fastest grad span "
+             f"{grad_s * 1e3:.1f} ms = {rate / 1e12:.1f} TFLOP/s, "
+             f"{rate / BF16_PEAK:.1%} of the bf16 dense peak")
+    # The expert-parallel dispatch in a world of one is the dense one.
+    dense = get_config(MOE_ARCH).reduced()
+    ep = dataclasses.replace(dense, moe_impl="expert_parallel")
+    rng = prng.PRNGKey(3, device=device)
+    batch = {k: prng.randint(kk, (4, 32), 0, dense.vocab_size).to(
+        torch.int32) for k, kk in zip(("labels", "tokens"),
+                                      prng.split(rng))}
+    outs = {}
+    for name, c in (("dense", dense), ("ep", ep)):
+        params = R.init_params(prng.PRNGKey(0, device=device), c)
+        opt = sgd(0.1)
+        new, _, loss = steps.make_train_step(c, opt, mesh=world_mesh())(
+            params, opt.init(params), batch, rng)
+        pre = steps.make_prefill_step(c, world_mesh())(
+            params, {"tokens": batch["tokens"]})
+        outs[name] = (transport.tree_flatten(new)[0], loss, pre)
+    same = (all(torch.equal(a, b) for a, b in zip(outs["ep"][0],
+                                                  outs["dense"][0]))
+            and torch.equal(outs["ep"][1], outs["dense"][1])
+            and torch.equal(outs["ep"][2], outs["dense"][2]))
+    _check(same, "expert_parallel at a world of one differs from the dense "
+           "dispatch")
+    _log(f"  {MOE_ARCH} reduced, moe_impl='expert_parallel' at a world of "
+         f"one: a train step (loss {float(outs['ep'][1]):.6f}) and the "
+         f"prefill step equal the dense dispatch's bit for bit")
+    _log(f"  phase 5r: {time.perf_counter() - t_phase:.1f} s")
+
+
 def phase_times(torch, device, small: bool, launches: dict, sass: dict,
                 mhz, buckets=(), sparse_shapes=(), k0_row=None) -> list:
     from repro_torch.core import aggregation, prng, transport
@@ -3753,9 +4105,11 @@ def main(argv=None) -> int:
         torch.use_deterministic_algorithms(True)
     small = device.type == "cpu"
     t0 = time.perf_counter()
+    dry = None
     try:
         smi, mhz = phase_device(torch, device)
         sass = phase_build(device)
+        dry = start_dryrun()
         phase_kernels(torch, device, small)
         launches, main_runs = phase_main_path(torch, device, small)
         if device.type == "cuda":
@@ -3778,15 +4132,21 @@ def main(argv=None) -> int:
             launches[k] += v
         phase_server(torch, device, small)
         for phase in (phase_moe, phase_vlm, phase_hybrid, phase_ssm,
-                      phase_audio):
+                      phase_audio, phase_long_row):
             for k, v in phase(torch, device, small, sass, mhz).items():
                 launches[k] += v
+        phase_optim(torch, device, small)
+        phase_dryrun(torch, device, small, dry)
         k0_row["launches"] = launches["k0"]
         rows = phase_times(torch, device, small, launches, sass, mhz,
                            buckets, sparse_shapes, k0_row)
     except PhaseError as e:
         print(f"chip_smoke.py: FAILED: {e}", file=sys.stderr)
         return 1
+    finally:
+        if dry is not None and dry.poll() is None:
+            dry.kill()
+            dry.wait()
     _log(f"== done in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -28,7 +28,9 @@ reproduces that key schedule integer for integer:
 Keys are ``int64`` tensors of shape ``(..., 2)`` holding ``uint32``
 values. Everything derived from a key is made on the key's device, so a
 round key on the GPU keeps the whole per-round schedule (client keys,
-kernel seeds) there. All 32-bit arithmetic runs in ``int64`` with an
+kernel seeds) there; on the meta device the hashes give their shapes and
+compute nothing, so a model's tree builds there without memory or
+arithmetic. All 32-bit arithmetic runs in ``int64`` with an
 ``& 0xFFFFFFFF`` mask, because PyTorch has no ``uint32`` shift or add on
 the CPU; 32-bit products go through :func:`mul32`, which never overflows
 ``int64``.
@@ -103,7 +105,14 @@ def PRNGKey(seed: int, device=None) -> torch.Tensor:
 
 
 def _hash(key: torch.Tensor, hi, lo):
-    """Threefry of the counter ``(hi, lo)`` under ``key`` (``(..., 2)``)."""
+    """Threefry of the counter ``(hi, lo)`` under ``key`` (``(..., 2)``);
+    on the meta device, two words of the broadcast shape and no rounds."""
+    if key.device.type == "meta":
+        shape = torch.broadcast_shapes(key.shape[:-1],
+                                       *(torch.as_tensor(v).shape
+                                         for v in (hi, lo)))
+        return (torch.empty(shape, dtype=torch.int64, device="meta"),
+                torch.empty(shape, dtype=torch.int64, device="meta"))
     return threefry2x32(key[..., 0], key[..., 1], hi, lo)
 
 
@@ -129,6 +138,10 @@ def random_bits(key: torch.Tensor, shape=()) -> torch.Tensor:
     shape ``(...) + shape``.
     """
     shape = tuple(shape)
+    if key.device.type == "meta":
+        # shapes only: no bits to hash, and no limit on the count
+        return torch.empty(key.shape[:-1] + shape, dtype=torch.int64,
+                           device="meta")
     n = math.prod(shape)
     if n >= 1 << 32:
         raise ValueError("random_bits supports fewer than 2**32 values")

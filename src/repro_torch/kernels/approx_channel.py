@@ -48,6 +48,7 @@ _FADING = {"rayleigh": 0, "awgn": 1, "block_rayleigh": 2}
 _SOURCE = "approx_channel"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_int64
 _F = ctypes.c_float
 _U = ctypes.c_uint32
 
@@ -58,7 +59,7 @@ _U = ctypes.c_uint32
 SIGNATURES = {
     "repro_k0_approx_channel_row": [
         _P, _P, _P, _P, _P, _P,         # x, out, errs, seed, npow, gain
-        _I, _I, _I, _I, _I, _I,         # N, k, fading, wb, bw, fade_block
+        _L, _I, _I, _I, _I, _I,         # N, k, fading, wb, bw, fade_block
         _U, _F, _F, _P],                # clamp, amp, inv, stream
     "repro_k1_approx_channel_batch": [
         _P, _P, _P, _P, _P, _P,         # x, out, errs, seeds, npow, gains
@@ -88,24 +89,30 @@ def _constellation(bits_per_symbol: int) -> tuple[float, float]:
     return float(np.float32(amp)), float(np.float32(1.0 / amp))
 
 
-# The kernels index a row's words with a 32-bit int (Params::n and the
-# word index i in csrc/approx_channel.cu).
+# K1 and K2 index a row's words with a 32-bit int (Params::n and the word
+# index i in csrc/approx_channel.cu); K0's row length and word index are
+# 64-bit, so K0 takes any row the card holds.
 MAX_ROW_WORDS = 2**31 - 1
 
 
-def _check_row(x) -> None:
-    """Refuse a padded row longer than the kernels' int row index, on every
-    device (the plain version would run it, but the kernel could not)."""
+def _check_row(x, kernel: str) -> None:
+    """Refuse a padded row longer than K1's and K2's int row index, on
+    every device (the plain version would run it, but the kernel could
+    not)."""
     if x.shape[-1] > MAX_ROW_WORDS:
         raise ValueError(
-            f"a row of {x.shape[-1]} words (padded to whole tiles) exceeds "
-            f"the kernels' limit of 2**31 - 1 words")
+            f"{kernel}: a row of {x.shape[-1]} words (padded to whole tiles) "
+            f"exceeds its limit of 2**31 - 1 words")
+
+
+def _check_device(x) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"kernel path needs CUDA tensors, got {x.device}")
 
 
 def _check_common(x, seeds, noise_powers, gains, *, bits_per_symbol, fading,
                   block_words, word_bits, fade_block):
-    if x.device.type != "cuda":
-        raise ValueError(f"kernel path needs CUDA tensors, got {x.device}")
+    _check_device(x)
     if x.ndim != 2 or not x.is_contiguous():
         raise ValueError("x must be a contiguous (C, N) tensor")
     wire = torch.bfloat16 if word_bits == 16 else torch.float32
@@ -174,7 +181,7 @@ def approx_channel_batch_kernel(
     Returns ``(x_hat (C, N) wire dtype, bit_errors (C,) int32)``; a row
     over ``MAX_ROW_WORDS`` raises ``ValueError`` on any device.
     """
-    _check_row(x)
+    _check_row(x, "K1")
     if x.device.type == "cpu":
         return ref_lib.approx_channel_batch_ref(
             x, seeds, noise_powers, large_scale_gains,
@@ -234,7 +241,7 @@ def approx_channel_batch_aggregate_kernel(
     Returns ``(agg (N,) float32, bit_errors (C,) int32)``; a row over
     ``MAX_ROW_WORDS`` raises ``ValueError`` on any device.
     """
-    _check_row(x)
+    _check_row(x, "K2")
     if x.device.type == "cpu":
         return ref_lib.approx_channel_batch_aggregate_ref(
             x, seeds, noise_powers, large_scale_gains, weights,
@@ -291,16 +298,18 @@ def approx_channel_kernel(
     ``noise_power`` and ``large_scale_gain`` floats or one-element tensors.
     The same received words and int32 error count as K1's row 0 of a C=1
     batch, so as the plain version; a CUDA call counts one launch of K0
-    and none of K1. Returns ``(x_hat (N,) wire dtype, bit_errors () int32)``;
-    a row over ``MAX_ROW_WORDS`` raises ``ValueError`` on any device.
+    and none of K1. The row may be longer than ``MAX_ROW_WORDS``: each
+    word's tile is its index over ``block_words`` as ``uint32`` (the
+    reference's ``program_id``), and the int32 count wraps modulo 2**32.
+    Returns ``(x_hat (N,) wire dtype, bit_errors () int32)``.
     """
-    _check_row(x)
     if x.device.type == "cpu":
         return ref_lib.ref_approx_channel(
             x, seed, noise_power, large_scale_gain,
             bits_per_symbol=bits_per_symbol, fading=fading,
             fade_block=fade_block, clamp_mask=clamp_mask,
             block_words=block_words, word_bits=word_bits)
+    _check_device(x)
     dev = x.device
     row = x[None, :].contiguous()
     seeds = _seed_bits(torch.as_tensor(seed, device=dev).reshape(1))

@@ -65,7 +65,9 @@
 // to an SM, so K2 takes about 6 / 5.33 of the time its work needs.
 //
 // K0, one long row. The LLM trainer sends its whole gradient as one row:
-// qwen2-1.5b's 1,777,088,000 words (83% of the int row index). There K0
+// qwen2-1.5b's 1,777,088,000 words, recurrentgemma-2b's 3,549,795,840 at
+// its published 26 layers (past 2**31 - 1, so K0's row length is an
+// int64_t; K1 and K2 keep an int row length). At qwen2-1.5b's row K0
 // reads and writes 14.22 GB, 4.24 ms at 3.35 TB/s, and runs 2.84e10
 // symbols, 5.27 T operations, 78.59 ms at the float32 peak: operations
 // bound it, and in practice the issue rate of its SASS. Run as K1 at
@@ -79,8 +81,9 @@
 // - one thread per word, every warp working: blocks of 256 consecutive
 //   words, each thread runs its word's WB / K symbols through
 //   channel_symbol with the four inner hash halves computed in registers
-//   (symbol_hash); the symbol index is BlockWords' uint32 formula, so it
-//   wraps at tile 262,144 as the reference's does;
+//   (symbol_hash); the symbol index is BlockWords' uint32 formula on the
+//   word's tile (its 64-bit index over bw, as uint32), so it wraps at
+//   tile 262,144 as the reference's does;
 // - a persistent grid of min(ceil(N / 256), SMs x resident blocks)
 //   blocks walks the row in grid strides, with a 64-bit word index; a
 //   row of fewer than 8 warps an SM gets blocks of fewer warps, so that
@@ -305,7 +308,8 @@ struct Wire<16> {
 };
 
 struct Params {
-  int n;              // words per client row (a multiple of bw)
+  int n;              // words per client row (a multiple of bw); K0 takes
+                      // its row length apart, as an int64_t
   int bw;             // block_words: interleave tile of the wire format
   int fade_block;     // symbols per fading block (block_rayleigh)
   uint32_t clamp;     // receiver AND-mask
@@ -452,7 +456,12 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 // (at most kRowThreads) consecutive words and walks the row in steps of
 // the whole grid; each thread computes its symbols' hash halves in
 // registers and sums its words' flips, and the block adds its total with
-// one atomicAdd.
+// one atomicAdd. The row length and the word index are 64-bit, so a row
+// may hold any number of words the card can: the word's tile is its
+// 64-bit index over bw, cast to uint32 as the reference casts
+// program_id, kept with the word's place in the tile and stepped by the
+// grid stride's whole tiles and remainder, so no 64-bit division runs in
+// the loop and nothing assumes that bw divides 2**32.
 template <int K, int FADING, int WB>
 __global__ void __launch_bounds__(kRowThreads, kRowMinBlocks)
     k0_approx_channel_row(const typename Wire<WB>::T* __restrict__ x,
@@ -460,22 +469,23 @@ __global__ void __launch_bounds__(kRowThreads, kRowMinBlocks)
                           int* __restrict__ errs,
                           const uint32_t* __restrict__ seed,
                           const float* __restrict__ npow,
-                          const float* __restrict__ gain, Params p) {
+                          const float* __restrict__ gain, int64_t n,
+                          Params p) {
   constexpr int S = WB / K;
   __shared__ uint32_t warp_flips[kRowThreads / 32];
   const Link link = load_link(seed, npow, gain, 0);
   const uint32_t bw = static_cast<uint32_t>(p.bw);
-  // 64-bit: near MAX_ROW_WORDS, i + stride overflows an int.
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  // the stride in whole tiles (mod 2**32) and the words left over
+  const uint32_t stride_tiles = static_cast<uint32_t>(stride / bw);
+  const uint32_t stride_words = static_cast<uint32_t>(stride % bw);
+  int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  uint32_t tile = static_cast<uint32_t>(i / bw);
+  uint32_t w = static_cast<uint32_t>(i % bw);
   uint32_t flips = 0;  // wraps modulo 2**32, as the int32 count does
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                   threadIdx.x;
-       i < p.n; i += stride) {
+  for (; i < n; i += stride) {
     // interleave: symbol s of word i has index base + s * bw + w (uint32,
     // so it wraps at tile 262,144 as the reference's does)
-    const uint32_t iu = static_cast<uint32_t>(i);
-    const uint32_t tile = iu / bw;
-    const uint32_t w = iu % bw;
     const uint32_t base = tile * (bw * S) + w;
     const uint32_t u = x[i];
     uint32_t u_hat = 0;
@@ -493,6 +503,12 @@ __global__ void __launch_bounds__(kRowThreads, kRowMinBlocks)
     u_hat &= p.clamp;
     out[i] = static_cast<typename Wire<WB>::T>(u_hat);
     flips += __popc(u ^ u_hat);
+    tile += stride_tiles;
+    w += stride_words;
+    if (w >= bw) {
+      w -= bw;
+      ++tile;
+    }
   }
   flips = __reduce_add_sync(0xffffffffu, flips);
   if ((threadIdx.x & 31) == 0) warp_flips[threadIdx.x >> 5] = flips;
@@ -530,20 +546,20 @@ RowOccupancy row_occupancy() {
 // still spreads over every SM.
 template <int K, int FADING, int WB>
 void launch_k0(const void* x, void* out, int* errs, const uint32_t* seed,
-               const float* npow, const float* gain, const Params& p,
-               cudaStream_t stream) {
+               const float* npow, const float* gain, int64_t n,
+               const Params& p, cudaStream_t stream) {
   using T = typename Wire<WB>::T;
   const RowOccupancy occ = row_occupancy<K, FADING, WB>();
   const int64_t sms = std::max(occ.sms, 1);
-  const int64_t warps = (static_cast<int64_t>(p.n) + 31) / 32;
+  const int64_t warps = (n + 31) / 32;
   const int threads = 32 * static_cast<int>(std::clamp<int64_t>(
                                (warps + sms - 1) / sms, 1, kRowThreads / 32));
-  const int64_t blocks = (static_cast<int64_t>(p.n) + threads - 1) / threads;
+  const int64_t blocks = (n + threads - 1) / threads;
   const int grid = static_cast<int>(
       std::min<int64_t>(blocks, static_cast<int64_t>(occ.sms) * occ.per_sm));
   k0_approx_channel_row<K, FADING, WB><<<grid, threads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<T*>(out), errs, seed, npow, gain,
-      p);
+      n, p);
 }
 
 template <int K, int FADING, int WB>
@@ -627,12 +643,13 @@ struct K2Launcher {
 // be zeroed, since blocks add their counts into it.
 extern "C" int repro_k0_approx_channel_row(
     const void* x, void* out, int* errs, const uint32_t* seed,
-    const float* npow, const float* gain, int n, int k, int fading,
+    const float* npow, const float* gain, int64_t n, int k, int fading,
     int word_bits, int bw, int fade_block, uint32_t clamp, float amp,
     float inv, void* stream) {
-  const Params p{n, bw, fade_block, clamp, 1, amp, inv};
+  // Params::n is K1's and K2's int row length; K0 reads n instead.
+  const Params p{0, bw, fade_block, clamp, 1, amp, inv};
   if (!dispatch<K0Launcher>(k, fading, word_bits, x, out, errs, seed, npow,
-                            gain, p, static_cast<cudaStream_t>(stream))) {
+                            gain, n, p, static_cast<cudaStream_t>(stream))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

@@ -11,11 +11,17 @@ prefill (port of ``repro.launch.steps`` on ``torch.distributed``).
 ``make_serve_step``        — one-token greedy decode against a KV cache.
 ``make_prefill_step``      — full-sequence forward, last-position logits.
 
-A step takes the *global* batch (numpy or tensors) and each rank takes
-its rows, as the reference's ``shard_map`` splits the batch over the
-data axes; params and optimizer state are replicated. With ``mesh=None``
-(or a world of one) a step is the whole batch on one device, the
-reference's ``(1, 1)`` mesh. Inside a :func:`repro_torch.obs.spans.collect`
+A train step takes the *global* batch (numpy or tensors) and each rank
+takes its rows, as the reference's ``shard_map`` splits the batch over
+the data axes; params and optimizer state are replicated. With
+``mesh=None`` (or a world of one) a step is the whole batch on one
+device, the reference's ``(1, 1)`` mesh. The plain train step and the
+prefill and serve steps given a mesh run their forward inside
+``models.moe.expert_group`` over the data group, so a moe config with
+``moe_impl="expert_parallel"`` exchanges tokens with the expert owners
+there (the reference's auto data axes); the per-client approx step does
+not, as the reference's ``shard_map`` over Manual data axes takes the
+dense dispatch. Inside a :func:`repro_torch.obs.spans.collect`
 scope the approx step times ``grad`` (forward and backward), the
 uplink's ``keys`` and ``kernel`` and ``apply``.
 """
@@ -29,6 +35,7 @@ from repro_torch.core import aggregation as agg_lib
 from repro_torch.core import prng
 from repro_torch.core import transport as transport_lib
 from repro_torch.launch import sharding as sh
+from repro_torch.models import moe as MOE
 from repro_torch.models import registry as R
 from repro_torch.obs import spans
 
@@ -92,7 +99,8 @@ def make_train_step(cfg, opt, *, transport_cfg=None, mesh=None):
     def step(params, opt_state, batch, key):
         group = _group(mesh)
         local = _local_batch(batch, mesh, _device_of(params))
-        loss, grads = value_and_grad(cfg, params, local)
+        with MOE.expert_group(group):
+            loss, grads = value_and_grad(cfg, params, local)
         loss = _pmean(loss, group)
         if agg_lib.group_size(group) > 1:
             grads = transport_lib.tree_map(
@@ -189,7 +197,8 @@ def make_train_step_approx(cfg, opt, transport_cfg, mesh=None):
     def step(params, opt_state, batch, key):
         group = _group(mesh)
         local = _local_batch(batch, mesh, _device_of(params))
-        with spans.span("grad"):
+        # the dense dispatch, as under the reference's Manual data axes
+        with spans.span("grad"), MOE.expert_group(None):
             loss, grads = value_and_grad(cfg, params, local)
         # grads travel (and all-reduce) in the wire dtype
         grads = transport_lib.tree_map(lambda g: g.to(wire), grads)
@@ -209,25 +218,32 @@ def make_train_step_approx(cfg, opt, transport_cfg, mesh=None):
     return step
 
 
-def make_serve_step(cfg, *, ring: bool = False):
+def make_serve_step(cfg, *, ring: bool = False, mesh=None):
     """``serve_step(params, cache, tokens, pos) -> (next_tok (B, 1) int32,
-    cache)``: one decode step and its greedy token."""
+    cache)``: one decode step and its greedy token. With a ``mesh`` every
+    rank of its group calls the step together on its own rows and cache,
+    and expert-parallel moe layers exchange tokens over the group."""
 
     def serve_step(params, cache, tokens, pos):
-        logits, cache = R.decode_step(params, cache, tokens, pos, cfg,
-                                      ring=ring)
+        with MOE.expert_group(_group(mesh)):
+            logits, cache = R.decode_step(params, cache, tokens, pos, cfg,
+                                          ring=ring)
         next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
         return next_tok, cache
 
     return serve_step
 
 
-def make_prefill_step(cfg):
-    """``prefill_step(params, batch) -> last-position logits (B, V)``."""
+def make_prefill_step(cfg, mesh=None):
+    """``prefill_step(params, batch) -> last-position logits (B, V)``.
+    With a ``mesh`` every rank of its group calls the step together on its
+    own rows, and expert-parallel moe layers exchange tokens over the
+    group."""
 
     @torch.no_grad()
     def prefill_step(params, batch):
-        logits, _ = R.forward(params, batch, cfg)
+        with MOE.expert_group(_group(mesh)):
+            logits, _ = R.forward(params, batch, cfg)
         return logits[:, -1]
 
     return prefill_step

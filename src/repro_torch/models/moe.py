@@ -35,20 +35,31 @@ Where the two packages' arithmetic meets:
   sort-based accumulate of ``index_put``) are the same on every run
   under deterministic algorithms.
 
-``moe_impl="expert_parallel"`` (the reference's ``moe_ffn_shardmap``,
-all_to_all over the data axes) is not ported yet:
-``models/transformer.py`` raises for it.
+``moe_impl="expert_parallel"`` is :func:`moe_ffn_shardmap`, the
+reference's expert-parallel dispatch over a ``torch.distributed`` group:
+each rank routes its own tokens, a pair of ``all_to_all`` exchanges carries
+the ``(E, C, D)`` buffers to and from the ranks that own the experts, and
+each rank runs ``E / n`` experts. The group comes from the
+:func:`expert_group` scope that the data-parallel steps open
+(``launch/steps.py``): the reference's auto data axes. Outside such a
+scope, in a world of one, or where ``E`` does not split over the ranks,
+it is the dense dispatch, as in the reference.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.core import prng
 from repro_torch.models import layers as L
 
-__all__ = ["init_moe", "capacity", "moe_ffn"]
+__all__ = ["init_moe", "capacity", "moe_ffn", "moe_ffn_shardmap",
+           "expert_group", "current_expert_group"]
 
 
 def init_moe(key, cfg, dtype):
@@ -155,3 +166,127 @@ def moe_ffn(x: torch.Tensor, p, cfg):
         s = p["shared"]
         out = out + L.swiglu(x2, s["wi"], s["wg"], s["wo"])
     return out.reshape(orig_shape), aux
+
+
+# ------------------------------------------------------------------------
+# Expert-parallel dispatch via all_to_all (the reference's
+# ``moe_ffn_shardmap``): tokens are routed locally on each data rank,
+# exchanged with the expert-owner ranks by a pair of all_to_alls, and each
+# rank runs only its E / n experts. The port holds every parameter whole
+# on each rank, so rank r uses the slice [r E / n, (r + 1) E / n) of the
+# stacked expert weights.
+# ------------------------------------------------------------------------
+
+_GROUP = contextvars.ContextVar("repro_torch_expert_group", default=None)
+
+
+@contextlib.contextmanager
+def expert_group(group):
+    """Within this scope the moe layers of ``moe_impl="expert_parallel"``
+    exchange tokens over ``group`` (the data ranks; ``None`` is a world of
+    one). The train, prefill and serve steps open it; the per-client
+    approx step does not, as the reference's per-client ``shard_map``
+    makes its data axes Manual and so takes the dense dispatch."""
+    token = _GROUP.set(group)
+    try:
+        yield
+    finally:
+        _GROUP.reset(token)
+
+
+def current_expert_group():
+    """The group of the innermost :func:`expert_group` scope, or ``None``.
+    The transformer reads it when a forward starts and hands it to each
+    layer, so a layer's recomputation under ``checkpoint`` (during the
+    backward pass, outside the scope) takes the same dispatch."""
+    return _GROUP.get()
+
+
+class _AllToAll(torch.autograd.Function):
+    """``all_to_all_single`` on equal chunks of dim 0: chunk ``j`` goes to
+    rank ``j``, and chunk ``j`` of the result came from rank ``j``. The
+    exchange is its own transpose, so the backward pass sends the
+    gradients back the same way."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_to_all(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_to_all(grad, ctx.group), None
+
+
+def _all_to_all(x, group):
+    # contiguous first: empty_like keeps a permuted input's strides, and
+    # the collective reads and writes both buffers as contiguous
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=group)
+    return out
+
+
+class _PMean(torch.autograd.Function):
+    """The mean over the group (the reference's ``pmean``); its gradient is
+    passed to the local value unchanged, because the data-parallel step
+    averages the ranks' gradients, which is ``pmean``'s own transpose."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.detach().to(torch.float32).clone()
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+        return out / dist.get_world_size(group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def moe_ffn_shardmap(x: torch.Tensor, p, cfg, group=None):
+    """Expert-parallel MoE over ``group``: ``(B, S, D)`` of this rank's
+    rows -> ``(out, aux)``, ``aux`` the mean over the ranks. The dense
+    dispatch (:func:`moe_ffn`) where the reference takes it: no group, a
+    group of one rank, ``n_experts`` not a multiple of the group's size,
+    or an input that is not ``(B, S, D)``.
+
+    Per rank: route its ``T = B * S`` tokens at the local capacity
+    ``capacity(T)``; send expert block ``j`` of the ``(E, C, D)`` buffer to
+    rank ``j`` and receive its tokens for this rank's experts, ``(E / n,
+    n * C, D)``; the expert matmuls and the SiLU gate in float32, cast
+    back to the model dtype; the reverse exchange; the combine through the
+    trash column. The shared expert stays outside the exchange.
+    """
+    nd = 1 if group is None else dist.get_world_size(group)
+    E = cfg.n_experts
+    if nd == 1 or E % nd != 0 or x.ndim != 3:
+        return moe_ffn(x, p, cfg)
+    B, S, D = x.shape
+    E_loc = E // nd
+    r = dist.get_rank(group)
+    x2 = x.reshape(-1, D)
+    T, K = x2.shape[0], cfg.top_k
+    C = capacity(T, cfg)
+    buf, se, slot_c, st, sw, aux = _local_dispatch(
+        x2, {"router": p["router"]}, cfg, C)
+    # to the expert owners: (E, C, D) -> (E / n, n * C, D), rank j's
+    # tokens for expert e at [e, j * C:(j + 1) * C]
+    h = _AllToAll.apply(buf.reshape(nd, E_loc, C, D), group)
+    h = h.permute(1, 0, 2, 3).reshape(E_loc, nd * C, D)
+    mine = slice(r * E_loc, (r + 1) * E_loc)
+    h32 = h.to(torch.float32)
+    hi = torch.matmul(h32, p["wi"][mine].to(torch.float32))
+    hg = torch.matmul(h32, p["wg"][mine].to(torch.float32))
+    act = F.silu(hg) * hi
+    y = torch.matmul(act, p["wo"][mine].to(torch.float32)).to(h.dtype)
+    # back to the token owners: (E / n, n * C, D) -> (E, C, D)
+    y = y.reshape(E_loc, nd, C, D).permute(1, 0, 2, 3)
+    y_loc = _AllToAll.apply(y, group).reshape(E, C, D)
+    y_pad = torch.cat([y_loc, y_loc.new_zeros((E, 1, D))], dim=1)
+    contrib = y_pad[se, slot_c] * sw[:, None].to(y_loc.dtype)
+    out = _combine(contrib, st, T, K, x.dtype)
+    aux = _PMean.apply(aux, group)
+    if cfg.n_shared_experts:
+        s_ = p["shared"]
+        out = out + L.swiglu(x2, s_["wi"], s_["wg"], s_["wo"])
+    return out.reshape(B, S, D), aux

@@ -3,9 +3,10 @@
 
 The port runs every family: ``dense``, ``moe``, ``vlm`` and ``hybrid``
 (``models/transformer.py``, with ``models/moe.py``), ``ssm``
-(``models/ssm.py``) and ``audio`` (``models/audio.py``). A moe config with
-``moe_impl="expert_parallel"`` raises ``NotImplementedError`` naming the
-ROADMAP item that ports it (``transformer.check_family``). The shape helpers
+(``models/ssm.py``) and ``audio`` (``models/audio.py``); a moe config with
+``moe_impl="expert_parallel"`` runs ``models/moe.py``'s expert-parallel
+dispatch inside a data-parallel step's ``expert_group`` scope and the
+dense dispatch outside it. The shape helpers
 (``uses_ring_cache``, ``cache_len_for``, ``supports_shape``,
 ``input_specs``) answer for every family, as they are data.
 """

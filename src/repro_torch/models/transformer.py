@@ -6,8 +6,9 @@
 * ``moe`` has the same attention with the FFN replaced by top-k expert
   routing (``repro_torch.models.moe``, the dense dispatch), after
   ``first_dense_layers`` dense layers at ``dense_d_ff``; the aux loss is
-  summed over the moe layers. ``moe_impl="expert_parallel"`` raises
-  ``NotImplementedError``.
+  summed over the moe layers. ``moe_impl="expert_parallel"`` exchanges
+  tokens with the expert owners over the group of the enclosing
+  ``moe.expert_group`` scope (``moe.moe_ffn_shardmap``).
 * ``vlm`` is the dense decoder behind a projected patch-embedding prefix
   (``batch["patch_embeds"]``; the vision encoder is a stub, as in the
   reference). The prefix is cut after the final norm; decode sees no
@@ -56,17 +57,9 @@ Params = Any
 
 
 def check_family(cfg) -> None:
-    """Raise for a family (or moe dispatch) this module does not run."""
-    if cfg.family in ("dense", "vlm", "hybrid"):
-        return
-    if cfg.family == "moe":
-        if cfg.moe_impl == "expert_parallel":
-            raise NotImplementedError(
-                f"moe_impl='expert_parallel' ({cfg.name}) is not ported yet: "
-                "ROADMAP Queue 1, item 10a (moe_ffn_shardmap, expert "
-                "parallelism over all_to_all)")
-        return
-    raise ValueError(cfg.family)
+    """Raise for a family this module does not run."""
+    if cfg.family not in ("dense", "moe", "vlm", "hybrid"):
+        raise ValueError(cfg.family)
 
 
 # ---------------------------------------------------------------- params
@@ -277,9 +270,12 @@ def _mlp_block(x, p, cfg):
     return x + L.swiglu(h, p["mlp"]["wi"], p["mlp"]["wg"], p["mlp"]["wo"])
 
 
-def _moe_block(x, p, cfg):
+def _moe_block(x, p, cfg, group=None):
     h = L.rmsnorm(x, p["ln2"])
-    out, aux = MOE.moe_ffn(h, p["moe"], cfg)
+    if cfg.moe_impl == "expert_parallel":
+        out, aux = MOE.moe_ffn_shardmap(h, p["moe"], cfg, group)
+    else:
+        out, aux = MOE.moe_ffn(h, p["moe"], cfg)
     return x + out, aux
 
 
@@ -381,9 +377,9 @@ def _layer(x, pl, cfg, positions, window):
     return _mlp_block(h, pl, cfg)
 
 
-def _moe_layer(x, pl, cfg, positions, window):
+def _moe_layer(x, pl, cfg, positions, window, group):
     h = _attn_block(x, pl, cfg, positions, window)
-    return _moe_block(h, pl, cfg)
+    return _moe_block(h, pl, cfg, group)
 
 
 def _hybrid_group(x, gp, cfg, positions, window):
@@ -437,8 +433,10 @@ def forward(params: Params, batch: dict, cfg):
         if nd:
             for pl in _unstack_layers(params["dense_layers"], nd):
                 x = _run(_layer, x, pl, cfg, positions, window)
+        # read here, not in the layer: a recomputation runs outside the scope
+        group = MOE.current_expert_group()
         for pl in _unstack_layers(params["layers"], cfg.n_layers - nd):
-            x, a = _run(_moe_layer, x, pl, cfg, positions, window)
+            x, a = _run(_moe_layer, x, pl, cfg, positions, window, group)
             aux_total = aux_total + a
     x = L.rmsnorm(x, params["final_norm"])
     if prefix:
@@ -539,7 +537,8 @@ def _decode_layers(x, stacked, n, kcache, vcache, pos, cfg, ring, moe):
     ks, vs = [], []
     for i, pl in enumerate(_unstack_layers(stacked, n)):
         x, kc, vc = _decode_attn(x, pl, cfg, kcache[i], vcache[i], pos, ring)
-        x = _moe_block(x, pl, cfg)[0] if moe else _mlp_block(x, pl, cfg)
+        x = (_moe_block(x, pl, cfg, MOE.current_expert_group())[0] if moe
+             else _mlp_block(x, pl, cfg))
         ks.append(kc)
         vs.append(vc)
     return x, torch.stack(ks), torch.stack(vs)

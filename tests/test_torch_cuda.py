@@ -31,6 +31,11 @@ padding subtracted), a compressed round launches K1 once, and error
 feedback keeps ``scatter(values) + residual == acc`` bit for bit on the
 card, with the CPU's selection on NaN, +-inf, +-0 and ties.
 
+K0's row length is 64-bit: a row of 2**31 + 1,024 words (past K1's and
+K2's int limit) matches the plain version on tiles either side of the
+counter wrap and of word 2**31, and its flipped bits equal K0's int32
+count modulo 2**32.
+
 The layered PHY and the ECRT chain, which launch no kernel, are held
 against themselves on the CPU: the layered batch under the same edge rule
 with the tolerance of ``layered_edge`` (its normals, ``torch.erfinv``, are
@@ -1015,6 +1020,33 @@ def test_k0_row_across_the_counter_wrap(cuda_device):
                                     first_tile=wrap - 1)
     assert torch.equal(_bits(got[lo:]), _bits(want))
     assert torch.equal(_bits(got[wrap * 1024:]), _bits(got[:1024]))
+
+
+@pytest.mark.cuda
+def test_k0_row_past_word_2_31(cuda_device):
+    """A row of 2,097,153 tiles, 2**31 + 1,024 words, one past K1's and
+    K2's int row index: K0 takes it. Tiles 0, 262,143, 262,144 (the
+    counter wrap), 2,097,151 and 2,097,152 (either side of word 2**31)
+    against the plain version given ``first_tile``; the row's flipped
+    bits equal K0's int32 count modulo 2**32."""
+    tiles = 2_097_153
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    x = torch.randn(tiles * 1024, generator=g, device=cuda_device) * 1e-3
+    seed = torch.tensor(123456789, dtype=torch.int64, device=cuda_device)
+    npow = torch.tensor(G0 / 10, device=cuda_device)
+    gain = torch.tensor(G0, device=cuda_device)
+    got, errs = TAC.approx_channel_kernel(x, seed, npow, gain)
+    for t in (0, 262_143, 262_144, 2_097_151, 2_097_152):
+        sl = slice(t * 1024, (t + 1) * 1024)
+        want, _ = TR.ref_approx_channel(x[sl], seed, npow, gain,
+                                        first_tile=t)
+        assert torch.equal(_bits(got[sl]), _bits(want)), t
+    flips = 0
+    for lo in range(0, x.numel(), 1 << 28):
+        d = _bits(x[lo:lo + (1 << 28)]) ^ _bits(got[lo:lo + (1 << 28)])
+        flips += int(TR._popcount(d.to(torch.int64) & 0xFFFFFFFF).sum())
+    assert flips > 2**31
+    assert (flips - int(errs)) % 2**32 == 0
 
 
 def _small_llm(dtype="float32"):

@@ -679,8 +679,9 @@ def test_registry_runs_hybrid_and_raises_for_the_rest():
     """``family_module`` is the transformer for hybrid and vlm, and
     ``models/ssm.py`` / ``models/audio.py`` for the ssm and audio families
     (which raised before they were ported), whose ``init_params`` runs;
-    ``moe_impl="expert_parallel"`` still raises naming its ROADMAP
-    item."""
+    ``moe_impl="expert_parallel"``, which raised before
+    ``moe_ffn_shardmap`` was ported, is the transformer too and passes
+    ``check_family``; an unknown family still raises."""
     from repro_torch.models import audio, ssm
 
     for arch in (ARCH, "pixtral-12b"):
@@ -692,10 +693,14 @@ def test_registry_runs_hybrid_and_raises_for_the_rest():
         assert params["embed"].shape == (512, 128)
     moe = dataclasses.replace(TC.get_config("phi3.5-moe-42b-a6.6b"),
                               moe_impl="expert_parallel")
-    with pytest.raises(NotImplementedError, match="10a"):
-        TR.family_module(moe)
-    with pytest.raises(NotImplementedError, match="10a"):
-        TT.check_family(moe)
+    assert TR.family_module(moe) is TT
+    TT.check_family(moe)
+    params = TR.init_params(P.PRNGKey(0), moe.reduced())
+    assert params["layers"]["moe"]["wi"].shape[1] == moe.reduced().n_experts
+    with pytest.raises(ValueError):
+        TT.check_family(dataclasses.replace(moe, family="ssm"))
+    with pytest.raises(ValueError):
+        TR.family_module(dataclasses.replace(moe, family="cnn"))
 
 
 class _Small:

@@ -350,15 +350,16 @@ def _extern_c_signatures():
 def test_binding_matches_cuda_source(name):
     """Each entry's ctypes ``argtypes`` has one type per parameter of its
     ``extern "C"`` declaration: ``c_void_p`` for every pointer (and the
-    stream), ``c_int`` / ``c_uint32`` / ``c_float`` for the scalars."""
+    stream), ``c_int`` / ``c_int64`` / ``c_uint32`` / ``c_float`` for the
+    scalars (K0's row length is an ``int64_t``)."""
     import ctypes
 
     decl = _extern_c_signatures()
     assert set(decl) == set(TAC.SIGNATURES)
     params, argtypes = decl[name], TAC.SIGNATURES[name]
     assert len(params) == len(argtypes)
-    scalar = {"int": ctypes.c_int, "uint32_t": ctypes.c_uint32,
-              "float": ctypes.c_float}
+    scalar = {"int": ctypes.c_int, "int64_t": ctypes.c_int64,
+              "uint32_t": ctypes.c_uint32, "float": ctypes.c_float}
     for p, t in zip(params, argtypes):
         want = ctypes.c_void_p if p.endswith("*") else scalar[p]
         assert t is want, (name, p, t)

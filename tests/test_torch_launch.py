@@ -297,18 +297,30 @@ def test_approx_allreduce_world_of_one():
 
 
 def test_row_over_int32_raises():
-    """A row past 2**31 - 1 words (after padding) is refused before any
-    work, on every device; meta tensors hold no data."""
+    """K1 and K2 refuse a row past 2**31 - 1 words (after padding) before
+    any work, on every device, naming themselves; K0's row length is
+    64-bit, so on such a row it gets past the row check and stops at the
+    device check (meta tensors hold no data)."""
     x = torch.empty(2**31 - 1000, device="meta")
-    with pytest.raises(ValueError, match="2\\*\\*31 - 1"):
+    with pytest.raises(ValueError, match="needs CUDA tensors, got meta"):
         TO.approx_channel(x, torch.tensor(1), torch.tensor(0.1), 1.0)
-    with pytest.raises(ValueError, match="2\\*\\*31 - 1"):
+    with pytest.raises(ValueError, match="needs CUDA tensors, got meta"):
+        TAC.approx_channel_kernel(torch.empty(3_549_796_352, device="meta"),
+                                  1, 0.1, 1.0)
+    with pytest.raises(ValueError, match="K1: .*2\\*\\*31 - 1"):
         TAC.approx_channel_batch_kernel(
             torch.empty((1, 2**31), device="meta"),
             torch.ones(1, dtype=torch.int32), torch.ones(1), torch.ones(1))
+    with pytest.raises(ValueError, match="K2: .*2\\*\\*31 - 1"):
+        TAC.approx_channel_batch_aggregate_kernel(
+            torch.empty((1, 2**31), device="meta"),
+            torch.ones(1, dtype=torch.int32), torch.ones(1), torch.ones(1),
+            torch.ones(1))
     assert TAC.MAX_ROW_WORDS == 2**31 - 1
-    # qwen2-1.5b's row fits: 1,777,088,000 words, 1,735,438 tiles padded
+    # qwen2-1.5b's row fits K1's limit; recurrentgemma-2b's at its
+    # published 26 layers (3,549,795,840 words) is past it
     assert math.ceil(1_777_088_000 / 1024) * 1024 <= TAC.MAX_ROW_WORDS
+    assert math.ceil(3_549_795_840 / 1024) * 1024 > TAC.MAX_ROW_WORDS
 
 
 def test_plain_tiles_at_an_offset_and_the_counter_wrap():

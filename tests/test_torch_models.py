@@ -138,29 +138,38 @@ def test_input_specs_equal(arch, shape_name):
                          + ["expert_parallel:" + a for a in JC.ARCH_IDS
                             if JC.get_config(a).family == "moe"])
 def test_other_families_raise(arch):
-    """A moe config's expert-parallel dispatch still raises naming its
-    ROADMAP item; the ssm and audio families, which raised before, now
-    run: the registry returns ``models/ssm.py`` / ``models/audio.py`` and
+    """The families and dispatches that raised before now run: a moe
+    config's expert-parallel dispatch builds the same tree as the dense
+    config (the registry returns the transformer), and the ssm and audio
+    families get ``models/ssm.py`` / ``models/audio.py``, whose
     ``init_params`` builds the reference's tree (the moe, vlm, hybrid, ssm
     and audio families are held against the reference in
-    ``test_torch_moe.py``, ``test_torch_vlm.py``, ``test_torch_hybrid.py``,
-    ``test_torch_ssm.py`` and ``test_torch_audio.py``)."""
+    ``test_torch_moe.py``, ``test_torch_moe_ep.py``, ``test_torch_vlm.py``,
+    ``test_torch_hybrid.py``, ``test_torch_ssm.py`` and
+    ``test_torch_audio.py``)."""
     from repro_torch.models import audio, ssm
+    from repro_torch.models import transformer
 
     name = arch.split(":")[-1]
     cfg = TC.get_config(name).reduced()
+    jcfg = JC.get_config(name).reduced()
     if arch.startswith("expert_parallel:"):
+        dense = cfg
         cfg = dataclasses.replace(cfg, moe_impl="expert_parallel")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TR.init_params(P.PRNGKey(0), cfg)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TR.family_module(cfg)
-        return
-    assert TR.family_module(cfg) is {"ssm": ssm, "audio": audio}[cfg.family]
+        jcfg = dataclasses.replace(jcfg, moe_impl="expert_parallel")
+        assert TR.family_module(cfg) is transformer
+        got, _ = tree_flatten(TR.init_params(P.PRNGKey(0), cfg))
+        want, _ = tree_flatten(TR.init_params(P.PRNGKey(0), dense))
+        assert len(got) == len(want)
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+    else:
+        assert TR.family_module(cfg) is {"ssm": ssm,
+                                         "audio": audio}[cfg.family]
     params = TR.init_params(P.PRNGKey(0), cfg)
     leaves, _ = tree_flatten(params)
-    want = jax.eval_shape(lambda: JR.init_params(
-        jax.random.PRNGKey(0), JC.get_config(name).reduced()))
+    want = jax.eval_shape(lambda: JR.init_params(jax.random.PRNGKey(0),
+                                                 jcfg))
     assert [tuple(t.shape) for t in leaves] == [
         tuple(a.shape) for a in jax.tree_util.tree_leaves(want)]
 

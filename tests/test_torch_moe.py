@@ -30,7 +30,8 @@ Grades, as the ROADMAP defines them:
   --reduced`` against the reference's, within ``TRAJ_TOL``.
 * Inside the port: decode equals the training forward at every prompt
   position when ``capacity_factor = n_experts / top_k`` (no token is
-  dropped); ``moe_impl="expert_parallel"`` raises.
+  dropped); ``moe_impl="expert_parallel"`` outside a data-parallel scope
+  is the dense dispatch, bit for bit (over ranks: ``test_torch_moe_ep.py``).
 
 The arithmetic copied from XLA, checked against the jitted reference: the
 aux loss's means multiply by the float32 reciprocal of the token count,
@@ -325,22 +326,33 @@ def test_moe_families_run(arch):
 
 def test_expert_parallel_raises():
     """``moe_impl="expert_parallel"`` (the reference's
-    ``moe_ffn_shardmap``) is not ported: every model entry point raises
-    naming the ROADMAP item, and none runs the dense dispatch instead."""
-    cfg = dataclasses.replace(TC.get_config(PHI).reduced(),
-                              moe_impl="expert_parallel")
-    params = TR.init_params(P.PRNGKey(0), dataclasses.replace(
-        cfg, moe_impl="dense"))
-    tokens = torch.zeros((1, 4), dtype=torch.int32)
-    calls = [lambda: TR.init_params(P.PRNGKey(0), cfg),
-             lambda: TR.forward(params, {"tokens": tokens}, cfg),
-             lambda: TR.init_cache(cfg, 1, 4),
-             lambda: TR.decode_step(params, TR.init_cache(
-                 dataclasses.replace(cfg, moe_impl="dense"), 1, 4),
-                 tokens[:, :1], 0, cfg)]
-    for call in calls:
-        with pytest.raises(NotImplementedError, match="ROADMAP.*10a"):
-            call()
+    ``moe_ffn_shardmap``) no longer raises: outside an ``expert_group``
+    scope, and in a world of one, every model entry point runs the dense
+    dispatch, bit for bit (its exchange over ranks is held in
+    ``test_torch_moe_ep.py``)."""
+    dense = TC.get_config(PHI).reduced()
+    cfg = dataclasses.replace(dense, moe_impl="expert_parallel")
+    params = TR.init_params(P.PRNGKey(0), cfg)
+    want = TR.init_params(P.PRNGKey(0), dense)
+    for a, b in zip(tree_flatten(params)[0], tree_flatten(want)[0]):
+        assert torch.equal(a, b)
+    tokens = torch.randint(0, dense.vocab_size, (2, 8),
+                           generator=torch.Generator().manual_seed(0),
+                           dtype=torch.int64).to(torch.int32)
+    for c in (cfg, dense):
+        assert TR.family_module(c) is TT
+    for scope in (contextlib.nullcontext(), TM.expert_group(None)):
+        with scope:
+            got = TR.forward(params, {"tokens": tokens}, cfg)
+        ref = TR.forward(params, {"tokens": tokens}, dense)
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    cache = TR.init_cache(cfg, 2, 8)
+    ref_cache = TR.init_cache(dense, 2, 8)
+    for a, b in zip(tree_flatten(cache)[0], tree_flatten(ref_cache)[0]):
+        assert torch.equal(a, b)
+    got, _ = TR.decode_step(params, cache, tokens[:, :1], 0, cfg)
+    ref, _ = TR.decode_step(params, ref_cache, tokens[:, :1], 0, dense)
+    assert torch.equal(got, ref)
 
 
 @pytest.mark.parametrize("arch", MOE)
