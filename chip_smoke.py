@@ -2980,8 +2980,9 @@ def _llm_train(torch, device, cfg, next_batch, n_steps: int, label: str,
         extra = step_extra(params, b) if step_extra else {}
         with spans.collect(device) as phase_s:
             params, opt_state, loss, stats = step(params, opt_state, b, sk)
+            loss = float(loss)  # a synchronise: the spans resolve at close
         records.append({
-            "loss": float(loss), "extra": extra, "phase_s": dict(phase_s),
+            "loss": loss, "extra": extra, "phase_s": dict(phase_s),
             "k0": ac.launch_counts()["k0"], "sk": sk,
             "errors": float(stats.bit_errors), "n_bits": float(stats.n_bits),
             "peak": _gib(torch, device)})

@@ -24,6 +24,7 @@ import torch.distributed as dist
 
 from repro_torch.core import prng
 from repro_torch.core import transport as transport_lib
+from repro_torch.obs import spans
 
 __all__ = [
     "fedsgd_aggregate",
@@ -97,9 +98,11 @@ def approx_allreduce(local_grads: Any, key: torch.Tensor,
     stats)``; ``stats`` are this rank's.
     """
     mul = group_size(group)
-    # mesh-shard keyspace on a dedicated aggregation key (bounded by the
-    # group size), not the round/client lane table: lint: ignore[keylane]
-    shard_key = prng.fold_in(key, group_rank(group))
+    with spans.span("keys"):
+        # mesh-shard keyspace on a dedicated aggregation key (bounded by
+        # the group size), not the round/client lane table:
+        # lint: ignore[keylane]
+        shard_key = prng.fold_in(key, group_rank(group))
     corrupted, stats = corrupt_local(local_grads, shard_key, cfg)
 
     def reduce(g):

@@ -240,11 +240,13 @@ def _equalized_stream(x: torch.Tensor, keys: torch.Tensor,
     """The uncoded pipeline up to the demod: ``(words (C, N), y (C, N*S))``
     with the stream interleaved or not as ``cfg.interleave`` says."""
     k, wb = cfg.scheme.bits_per_symbol, _wire_bits(cfg)
-    u = fc.bf16_to_bits(x) if wb == 16 else fc.f32_to_bits(x)
-    sym = fc.words_to_symbols(u, k, wb)  # (C, N, S)
-    stream = (fc.interleave(sym) if cfg.interleave
-              else sym.reshape(sym.shape[0], -1))
-    y, _ = _through_channel(stream, keys, cfg, snr_vec)
+    with spans.span("codec", device=True):
+        u = fc.bf16_to_bits(x) if wb == 16 else fc.f32_to_bits(x)
+        sym = fc.words_to_symbols(u, k, wb)  # (C, N, S)
+        stream = (fc.interleave(sym) if cfg.interleave
+                  else sym.reshape(sym.shape[0], -1))
+    with spans.span("channel", device=True):
+        y, _ = _through_channel(stream, keys, cfg, snr_vec)
     return u, y
 
 
@@ -263,17 +265,20 @@ def _uncoded(x: torch.Tensor, keys: torch.Tensor, cfg: TransportConfig,
     k, wb = cfg.scheme.bits_per_symbol, _wire_bits(cfg)
     c, n = x.shape
     u, y = _equalized_stream(x, keys, cfg, snr_vec)
-    rx = _per_word(mod_lib.demod_hard(y, cfg.scheme), n, cfg)
+    with spans.span("demod", device=True):
+        rx = _per_word(mod_lib.demod_hard(y, cfg.scheme), n, cfg)
     del y
-    u_hat = fc.symbols_to_words(rx, k, wb)
-    if clamp:
-        u_hat = (fc.clamp_exponent_bits16(u_hat, cfg.clamp_bound) if wb == 16
-                 else fc.clamp_exponent_bits(u_hat, cfg.clamp_bound))
-    # Post-clamp discrepancies against the true words: the clamp only
-    # lowers the count, since the true exponent MSB is 0.
-    bit_errors = mod_lib.popcount(u ^ u_hat).sum(dim=-1)
-    out = (fc.bits_to_bf16(u_hat).to(torch.float32) if wb == 16
-           else fc.bits_to_f32(u_hat))
+    with spans.span("codec", device=True):
+        u_hat = fc.symbols_to_words(rx, k, wb)
+        if clamp:
+            u_hat = (fc.clamp_exponent_bits16(u_hat, cfg.clamp_bound)
+                     if wb == 16
+                     else fc.clamp_exponent_bits(u_hat, cfg.clamp_bound))
+        # Post-clamp discrepancies against the true words: the clamp only
+        # lowers the count, since the true exponent MSB is 0.
+        bit_errors = mod_lib.popcount(u ^ u_hat).sum(dim=-1)
+        out = (fc.bits_to_bf16(u_hat).to(torch.float32) if wb == 16
+               else fc.bits_to_f32(u_hat))
     return out, _batch_stats(c, n * (wb // k), 1, bit_errors, n * wb,
                              n * wb, device=x.device)
 
@@ -451,14 +456,17 @@ def transmit_pytree(tree, key: torch.Tensor, cfg: TransportConfig, *,
     payload, leaves in sorted-key order; returns ``(tree_hat, stats)`` with
     shapes and dtypes restored."""
     leaves, spec = tree_flatten(tree)
-    flat = torch.cat([torch.as_tensor(l).reshape(-1).to(torch.float32)
-                      for l in leaves])
+    with spans.span("flatten", device=True):
+        flat = torch.cat([torch.as_tensor(l).reshape(-1).to(torch.float32)
+                          for l in leaves])
     flat_hat, stats = transmit_flat(flat, key, cfg, device=device)
-    out, off = [], 0
-    for leaf in leaves:
-        size = leaf.numel()
-        out.append(flat_hat[off:off + size].reshape(leaf.shape).to(leaf.dtype))
-        off += size
+    with spans.span("unflatten", device=True):
+        out, off = [], 0
+        for leaf in leaves:
+            size = leaf.numel()
+            out.append(flat_hat[off:off + size].reshape(leaf.shape)
+                       .to(leaf.dtype))
+            off += size
     return tree_unflatten(spec, out), stats
 
 

@@ -66,9 +66,11 @@ from repro_torch.core import latency as latency_lib
 from repro_torch.core import prng
 from repro_torch.core import transport as transport_lib
 from repro_torch.fl import engine as engine_lib
+from repro_torch.kernels import approx_channel as ac
 from repro_torch.link import dynamics as dynamics_lib
 from repro_torch.obs import ledger as ledger_lib
 from repro_torch.obs import records as records_lib
+from repro_torch.obs import spans
 from repro_torch.obs import trace as trace_lib
 
 __all__ = [
@@ -269,7 +271,8 @@ class AsyncRoundEngine(engine_lib.RoundEngine):
             idle = idle_now()
             if self.arrival_cfg is None and not idle.any():
                 return False
-            key, rk = prng.split(key)
+            with spans.collect(dev) as split, spans.span("key"):
+                key, rk = prng.split(key)
             if self.arrival_cfg is not None:
                 prev = joined.copy()
                 joined[:] = dynamics_lib.churn_step(
@@ -283,34 +286,37 @@ class AsyncRoundEngine(engine_lib.RoundEngine):
                     return False
             member_np = idle.astype(np.float32)
             member = torch.from_numpy(member_np)
-            with self._scope("sample"):
-                xb, yb = algo.sample(rng, self.client_x, self.client_y, dev)
-            with self._scope("wave"):
-                hat, agg, stats, dstats, rnd, phases = self._round_body(
-                    params, xb, yb, rk, member, aggregate=False)
-            member_dev = member.to(dev)
-            with self._scope("telemetry"):
-                if driver is None:
-                    per_air = latency_lib.round_airtime(
-                        stats, self.timings, self.transport_cfg.mode)
-                    if self.ecrt_air_scale is not None:
-                        per_air = per_air * self.ecrt_air_scale
-                    per_air = per_air * member_dev
-                    rec = records_lib.RoundRecord(round=w_id)
-                    active = member
-                else:
-                    per_air = driver.airtime(stats, rnd,
-                                             self.timings) * member_dev
-                    rec = records_lib.scenario_round_record(
-                        w_id, rnd, per_air, len(driver.mode_cfgs))
-                    active = member * rnd.active
-                cum_air += float(torch.sum(per_air))
-                if self.compression is not None:
-                    self._compression_record(rec, stats, rnd)
-                dl_wait = 0.0
-                if dstats is not None:
-                    dl_wait = self._downlink_record(rec, dstats)
-                    cum_air += dl_wait
+            before = ac.launch_counts()
+            with spans.collect(dev) as top, spans.span("round", id=w_id):
+                with self._scope("sample"), spans.span("sample"):
+                    xb, yb = algo.sample(rng, self.client_x,
+                                         self.client_y, dev)
+                with self._scope("wave"):
+                    hat, agg, stats, dstats, rnd, phases = self._round_body(
+                        params, xb, yb, rk, member, aggregate=False)
+                member_dev = member.to(dev)
+                with self._scope("telemetry"), spans.span("telemetry"):
+                    if driver is None:
+                        per_air = latency_lib.round_airtime(
+                            stats, self.timings, self.transport_cfg.mode)
+                        if self.ecrt_air_scale is not None:
+                            per_air = per_air * self.ecrt_air_scale
+                        per_air = per_air * member_dev
+                        rec = records_lib.RoundRecord(round=w_id)
+                        active = member
+                    else:
+                        per_air = driver.airtime(stats, rnd,
+                                                 self.timings) * member_dev
+                        rec = records_lib.scenario_round_record(
+                            w_id, rnd, per_air, len(driver.mode_cfgs))
+                        active = member * rnd.active
+                    cum_air += float(torch.sum(per_air))
+                    if self.compression is not None:
+                        self._compression_record(rec, stats, rnd)
+                    dl_wait = 0.0
+                    if dstats is not None:
+                        dl_wait = self._downlink_record(rec, dstats)
+                        cum_air += dl_wait
             comp_s = dynamics_lib.compute_times(
                 rk, self.compute_cfg, M, self._speed).numpy().astype(
                     np.float64)
@@ -347,16 +353,21 @@ class AsyncRoundEngine(engine_lib.RoundEngine):
                                    kind="uplink", wave=w_id, client=i,
                                    dur=float(air_np[i]))
             if self.sketcher is not None:
-                with self._scope("telemetry"):
+                with spans.collect(dev) as more, self._scope("telemetry"), \
+                        spans.span("telemetry", id=w_id):
                     rec.sketches = self.sketcher.round_group(
                         rk, snr_db=rnd.snr_db, est_db=rnd.est_db,
                         ber=stats.client_metrics()["ber"],
                         airtime_s=per_air, mode=rnd.mode,
                         active=rnd.active, member=member,
                         downlink_ber=None if dstats is None else dstats.ber)
+                top["telemetry"] += more["telemetry"]
             rec.t_event = t_now
             self._finish_record(res, rec, stats)
+            phases = {"key": split["key"], "sample": top["sample"], **phases,
+                      "telemetry": top["telemetry"]}
             res.phase_s.append(phases)
+            res.counters.append(engine_lib.launch_deltas(before))
             waves[w_id] = {"hat": hat, "agg": agg, "version": version,
                            "arrived": np.zeros(M, np.float32),
                            "pending": pending, "gaps": gaps,
@@ -388,48 +399,52 @@ class AsyncRoundEngine(engine_lib.RoundEngine):
                            value=float(sum(int(m.sum())
                                            for _, m, _ in folded)))
                 self._emit(t=t_now, kind="buffer", value=0.0)
-            t0 = time.perf_counter()
-            if self.fused_aggregate:
-                agg = waves.pop(newest)["agg"]
-            else:
-                entries = [(w, waves[w]["hat"], mask, self._staleness_om(s))
-                           for w, mask, s in folded]
-                if not entries:
-                    # Every member of the flushed wave dropped out: the sync
-                    # engine still applies its (zero) mean, so do the same.
-                    agg = _weighted_mean(waves[newest]["hat"],
-                                         np.zeros(M, np.float32))
-                elif (driver is None and len(entries) == 1
-                      and entries[0][3] > 0 and bool(entries[0][2].all())):
-                    # One complete uniform driverless wave: the sync mean.
-                    agg = {k: g.mean(dim=0)
-                           for k, g in entries[0][1].items()}
-                elif len(entries) == 1:
-                    _, hat, mask, om = entries[0]
-                    agg = _weighted_mean(hat, mask * np.float32(om))
-                else:
-                    agg = weighted_buffer_mean(
-                        [(w, hat, mask * np.float32(om))
-                         for w, hat, mask, om in entries])
-                for w, *_ in entries:
-                    waves[w]["arrived"][:] = 0.0
-                for w in [w for w, info in waves.items()
-                          if info["pending"] == 0
-                          and not info["arrived"].any()]:
-                    del waves[w]
-            params, aux = algo.apply(params, aux, agg)
-            engine_lib._sync(dev)
+            with spans.collect(dev) as folds:
+                with spans.span("apply", device=True, id=newest):
+                    if self.fused_aggregate:
+                        agg = waves.pop(newest)["agg"]
+                    else:
+                        entries = [(w, waves[w]["hat"], mask,
+                                    self._staleness_om(s))
+                                   for w, mask, s in folded]
+                        if not entries:
+                            # Every member of the flushed wave dropped out:
+                            # the sync engine still applies its (zero)
+                            # mean, so do the same.
+                            agg = _weighted_mean(waves[newest]["hat"],
+                                                 np.zeros(M, np.float32))
+                        elif (driver is None and len(entries) == 1
+                              and entries[0][3] > 0
+                              and bool(entries[0][2].all())):
+                            # One complete uniform driverless wave: the
+                            # sync mean.
+                            agg = {k: g.mean(dim=0)
+                                   for k, g in entries[0][1].items()}
+                        elif len(entries) == 1:
+                            _, hat, mask, om = entries[0]
+                            agg = _weighted_mean(hat, mask * np.float32(om))
+                        else:
+                            agg = weighted_buffer_mean(
+                                [(w, hat, mask * np.float32(om))
+                                 for w, hat, mask, om in entries])
+                        for w, *_ in entries:
+                            waves[w]["arrived"][:] = 0.0
+                        for w in [w for w, info in waves.items()
+                                  if info["pending"] == 0
+                                  and not info["arrived"].any()]:
+                            del waves[w]
+                    params, aux = algo.apply(params, aux, agg)
+                engine_lib._sync(dev)
+                r, acc = version, None
+                if r % self.eval_every == 0 or r == self.n_rounds - 1:
+                    with self._scope("eval"):
+                        acc = self._eval_acc(params)
             ph = res.phase_s[newest]
-            ph["apply"] = ph.get("apply", 0.0) + time.perf_counter() - t0
-            ph.setdefault("eval", 0.0)
+            ph["apply"] = ph.get("apply", 0.0) + folds["apply"]
+            ph["eval"] = ph.get("eval", 0.0) + folds.get("eval", 0.0)
             buffered = 0
-            r = version
             version += 1
-            if r % self.eval_every == 0 or r == self.n_rounds - 1:
-                with self._scope("eval"):
-                    t4 = time.perf_counter()
-                    acc = self._eval_acc(params)
-                    ph["eval"] += time.perf_counter() - t4
+            if acc is not None:
                 res.rounds.append(r)
                 res.accuracy.append(acc)
                 res.airtime_s.append(cum_air)

@@ -112,16 +112,25 @@ start, then (scenario runs) ``key -> (key, link-init key)``, then ``key ->
 (link key, uplink key)``; minibatches come from
 ``numpy.random.default_rng(seed)`` exactly as in the reference.
 
-Each round is timed in phases — downlink, gradients (FedAvg: the local
-steps), uplink, apply, eval — on the host clock after a device
-synchronise (``FLResult.phase_s``), so the numbers are device time for
-the phase, not enqueue time. The uplink and the downlink each report two
-of their parts, timed as spans (``repro_torch.obs.spans``):
-``uplink_keys`` / ``downlink_keys``, the per-client key schedule and
-kernel seeds, and ``uplink_kernel`` / ``downlink_kernel``, the K1/K2
-launches (or their plain versions on the CPU; 0 on the layered PHY and
-ECRT, which launch no kernel). Scenario rounds add ``link``, the link
-step on the host.
+Each round is timed by spans (``repro_torch.obs.spans``; the span tree
+is in its docstring) into ``FLResult.phase_s``: ``key`` (the round key's
+split, threefry on the host), ``sample`` (the numpy minibatch gather and
+its copy to the device), ``gradients`` (FedAvg: the
+local steps), ``uplink``, ``apply``, ``telemetry`` (airtime, the record,
+its ledger line and sketches) and ``eval`` (0.0 on rounds without one).
+The device phases (downlink, gradients, uplink, apply, eval) take their
+time from CUDA events on the card, resolved at the phase-end synchronise
+the engine makes (so ``FLResult.phase_s`` reads device time, not enqueue
+time); the host phases and every phase on the CPU, the host clock. The
+uplink's parts are ``uplink_<part>``: ``keys`` (the per-client key
+schedule and kernel seeds, on the host), ``kernel`` (the K1/K2 launches,
+or their plain versions on the CPU), the layered PHY's ``codec``,
+``channel`` and ``demod``, and ``mean`` (the PS mean of a layered round);
+each is 0.0 on a round whose uplink has no such part. Downlink rounds add
+``downlink`` and its ``downlink_<part>`` (the uplink's parts but
+``mean``); scenario rounds add ``link``, the link step on the host.
+``FLResult.counters`` holds each round's kernel launches (``k0``, ``k1``,
+``k2``).
 
 The round key stays on the CPU, so the key schedule (a few hundred int64
 ops on ``num_clients`` elements) and the link step run on the host and
@@ -177,6 +186,7 @@ from repro_torch.core import latency as latency_lib
 from repro_torch.core import prng
 from repro_torch.core import transport as transport_lib
 from repro_torch.fl import cnn
+from repro_torch.kernels import approx_channel as ac
 from repro_torch.obs import ledger as ledger_lib
 from repro_torch.obs import metrics as metrics_lib
 from repro_torch.obs import records as records_lib
@@ -199,13 +209,18 @@ class FLResult:
     airtime_s: list  # cumulative airtime: TDMA uplink sum (+ downlink leg)
     wall_s: float
     final_accuracy: float
-    # One dict per round: seconds spent in "gradients" (FedAvg: the local
-    # steps), "uplink", "apply" and "eval" (0.0 on rounds without an
-    # eval), each closed by a device synchronise; "uplink_keys" and
-    # "uplink_kernel" are parts of "uplink"; scenario rounds add "link",
-    # the host-side link step; downlink rounds add "downlink" with its
-    # parts "downlink_keys" and "downlink_kernel".
+    # One dict per round, the seconds of each span (module docstring):
+    # "key" (the round key's split), "sample", "gradients" (FedAvg: the
+    # local steps), "uplink" with its
+    # parts "uplink_<part>" (keys, kernel, codec, channel, demod, mean; 0.0
+    # where the uplink has none), "telemetry", "apply" and "eval" (0.0 on
+    # rounds without an eval); scenario rounds add "link", the host-side
+    # link step; downlink rounds add "downlink" with its parts
+    # "downlink_<part>" (the uplink's but mean).
     phase_s: list = dataclasses.field(default_factory=list)
+    # One dict per round (the buffered engine: per wave): the round's
+    # launches of each kernel, {"k0", "k1", "k2"}; 0 on the CPU.
+    counters: list = dataclasses.field(default_factory=list)
     # Per-round link telemetry in the reference's key order. Scenario
     # runs: {round, mean_snr_db, mean_est_db, mode_counts, n_active,
     # n_stragglers, airtime_s} (mode_counts indexes the driver's mode
@@ -473,9 +488,32 @@ class FedAvg:
         return {k: p + agg[k] for k, p in params.items()}, aux
 
 
+# The parts of the uplink and the downlink each round reports, 0.0 where a
+# leg has no such part (obs/spans.py has the tree).
+UPLINK_PARTS = ("keys", "kernel", "codec", "channel", "demod", "mean")
+DOWNLINK_PARTS = UPLINK_PARTS[:-1]
+
+
 def _sync(device: torch.device) -> None:
+    """A phase-end synchronise; the spans' device pairs resolve here."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+        spans.settle()
+
+
+def _parts(leg: str, seconds: dict, names) -> dict:
+    """``{leg_<part>: seconds}`` of a leg's collected spans: every name in
+    ``names`` (0.0 where it did not run), then any other part that ran."""
+    out = {f"{leg}_{n}": seconds.get(n, 0.0) for n in names}
+    out.update((f"{leg}_{n}", v) for n, v in seconds.items()
+               if n not in names)
+    return out
+
+
+def launch_deltas(before: dict) -> dict:
+    """Kernel launches since ``before`` (a ``launch_counts()`` dict)."""
+    now = ac.launch_counts()
+    return {k: now[k] - before[k] for k in now}
 
 
 class RoundEngine:
@@ -940,54 +978,58 @@ class RoundEngine:
     def _round_body(self, params, xb, yb, rk, member=None, aggregate=True):
         """One round's (or wave's) work from the link step through the
         uplink: ``(hat, agg, stats, dstats, rnd, phases)``, with ``phases``
-        the ``FLResult.phase_s`` entries of those steps, each closed by a
-        device synchronise. ``aggregate`` folds a per-client ``hat`` into
-        ``agg`` inside the uplink phase (the sync round); ``member`` (a
-        host 0/1 ``(M,)`` tensor) marks a wave's clients: the link step
-        observes only them, and only their previous estimate and EF
-        residual move."""
+        the ``FLResult.phase_s`` entries of those steps (spans; the device
+        ones resolved at the phase-end synchronises). ``aggregate`` folds a
+        per-client ``hat`` into ``agg`` inside the uplink phase (the sync
+        round); ``member`` (a host 0/1 ``(M,)`` tensor) marks a wave's
+        clients: the link step observes only them, and only their previous
+        estimate and EF residual move."""
         algo, dev, driver = self.algo, self.device, self.driver
-        phases, rnd, up_key = {}, None, rk
-        if driver is not None:
-            t_link = time.perf_counter()
-            k_link, up_key = prng.split(rk)
-            self.lstate, rnd = driver.round(
-                self.lstate, self.prev_mode, self.prev_est, k_link,
-                observed=member)
-            self.prev_mode = rnd.mode
-            self.prev_est = (rnd.est_db if member is None else torch.where(
-                member > 0, rnd.est_db, self.prev_est))
-            phases["link"] = time.perf_counter() - t_link
-        dstats = None
-        t0 = time.perf_counter()
-        if self.downlink is not None:
-            with spans.collect(dev) as dparts:
-                recv, dstats = self._broadcast(params, up_key, rnd)
+        rnd, up_key, recv, dstats = None, rk, None, None
+        dparts: dict = {}
+        with spans.collect(dev) as body:
+            if driver is not None:
+                with spans.span("link"):
+                    k_link, up_key = prng.split(rk)
+                    self.lstate, rnd = driver.round(
+                        self.lstate, self.prev_mode, self.prev_est, k_link,
+                        observed=member)
+                    self.prev_mode = rnd.mode
+                    self.prev_est = (rnd.est_db if member is None
+                                     else torch.where(member > 0, rnd.est_db,
+                                                      self.prev_est))
+            if self.downlink is not None:
+                with spans.span("downlink", device=True), \
+                        spans.collect(dev) as dparts:
+                    recv, dstats = self._broadcast(params, up_key, rnd)
+                _sync(dev)
+            with spans.span("gradients", device=True):
+                if self.downlink is None or self._dl_lossless:
+                    payload = algo.payload(params, xb, yb)
+                else:
+                    payload = algo.payload_from(recv, xb, yb)
             _sync(dev)
-            t_dl = time.perf_counter()
-            phases.update(downlink=t_dl - t0,
-                          downlink_keys=dparts.get("keys", 0.0),
-                          downlink_kernel=dparts.get("kernel", 0.0))
-            t0 = t_dl
-        if self.downlink is None or self._dl_lossless:
-            payload = algo.payload(params, xb, yb)
-        else:
-            payload = algo.payload_from(recv, xb, yb)
-        _sync(dev)
-        t1 = time.perf_counter()
-        with spans.collect(dev) as parts:
-            hat, agg, stats = self._transmit(payload, up_key, rnd, member)
-            if aggregate and agg is None:
-                agg = self._aggregate(hat, rnd)
-        _sync(dev)
-        phases.update(gradients=t1 - t0, uplink=time.perf_counter() - t1,
-                      uplink_keys=parts.get("keys", 0.0),
-                      uplink_kernel=parts.get("kernel", 0.0))
+            with spans.span("uplink", device=True), \
+                    spans.collect(dev) as parts:
+                hat, agg, stats = self._transmit(payload, up_key, rnd, member)
+                if aggregate and agg is None:
+                    with spans.span("mean", device=True):
+                        agg = self._aggregate(hat, rnd)
+            _sync(dev)
+        phases = {"link": body["link"]} if driver is not None else {}
+        if self.downlink is not None:
+            phases["downlink"] = body["downlink"]
+            phases.update(_parts("downlink", dparts, DOWNLINK_PARTS))
+        phases.update(gradients=body["gradients"], uplink=body["uplink"])
+        phases.update(_parts("uplink", parts, UPLINK_PARTS))
         return hat, agg, stats, dstats, rnd, phases
 
     def _eval_acc(self, params) -> float:
-        """Test-set accuracy of ``params``."""
-        return float(cnn.accuracy(params, self.test_x, self.test_y))
+        """Test-set accuracy of ``params``, timed as the span ``eval`` (its
+        pair resolves at the read of the result, a synchronise)."""
+        with spans.span("eval", device=True):
+            acc = cnn.accuracy(params, self.test_x, self.test_y)
+        return float(acc)
 
     def run(self) -> FLResult:
         """Drive ``n_rounds`` rounds and return the :class:`FLResult`."""
@@ -1001,56 +1043,69 @@ class RoundEngine:
         cum_air = 0.0
         driver = self.driver
         for r in range(self.n_rounds):
-            key, rk = prng.split(key)
-            with self._scope("sample"):
-                xb, yb = algo.sample(rng, self.client_x, self.client_y, dev)
-            with self._scope("round"):
-                _, agg, stats, dstats, rnd, phases = self._round_body(
-                    params, xb, yb, rk)
-                t2 = time.perf_counter()
-                params, aux = algo.apply(params, aux, agg)
-                _sync(dev)
-                phases.update(apply=time.perf_counter() - t2, eval=0.0)
-            with self._scope("telemetry"):
-                # TDMA uplink: total airtime is the sum over clients.
-                if driver is not None:
-                    per_client_air = driver.airtime(stats, rnd, self.timings)
-                    rec = records_lib.scenario_round_record(
-                        r, rnd, per_client_air, len(driver.mode_cfgs))
-                else:
-                    per_client_air = latency_lib.round_airtime(
-                        stats, self.timings, self.transport_cfg.mode)
-                    if self.ecrt_air_scale is not None:
-                        # Heterogeneous analytic ECRT: rescale each client's
-                        # airtime from the cohort-mean E[tx] to its own.
-                        per_client_air = per_client_air * self.ecrt_air_scale
-                    rec = records_lib.RoundRecord(round=r)
-                cum_air += float(torch.sum(per_client_air))
-                if self.compression is not None:
-                    self._compression_record(rec, stats, rnd)
-                if dstats is not None:
-                    cum_air += self._downlink_record(rec, dstats)
-                if self.sketcher is not None:
-                    rec.sketches = self.sketcher.round_group(
-                        rk, snr_db=rnd.snr_db, est_db=rnd.est_db,
-                        ber=stats.client_metrics()["ber"],
-                        airtime_s=per_client_air, mode=rnd.mode,
-                        active=rnd.active,
-                        downlink_ber=None if dstats is None else dstats.ber)
-                self._finish_record(res, rec, stats)
-            if r % self.eval_every == 0 or r == self.n_rounds - 1:
-                with self._scope("eval"):
-                    t4 = time.perf_counter()
-                    acc = self._eval_acc(params)
-                    phases["eval"] = time.perf_counter() - t4
-                res.rounds.append(r)
-                res.accuracy.append(acc)
-                res.airtime_s.append(cum_air)
-                if self.ledger is not None:
-                    self.ledger.write_eval(r, acc, cum_air)
-            res.phase_s.append(phases)
+            before = ac.launch_counts()
+            with spans.collect(dev) as top, spans.span("round", id=r):
+                with spans.span("key"):
+                    key, rk = prng.split(key)
+                with self._scope("sample"), spans.span("sample"):
+                    xb, yb = algo.sample(rng, self.client_x, self.client_y,
+                                         dev)
+                with self._scope("round"):
+                    _, agg, stats, dstats, rnd, phases = self._round_body(
+                        params, xb, yb, rk)
+                    with spans.span("apply", device=True):
+                        params, aux = algo.apply(params, aux, agg)
+                    _sync(dev)
+                with self._scope("telemetry"), spans.span("telemetry"):
+                    cum_air = self._telemetry(res, r, rk, stats, dstats, rnd,
+                                              cum_air)
+                if r % self.eval_every == 0 or r == self.n_rounds - 1:
+                    with self._scope("eval"):
+                        acc = self._eval_acc(params)
+                    res.rounds.append(r)
+                    res.accuracy.append(acc)
+                    res.airtime_s.append(cum_air)
+                    if self.ledger is not None:
+                        self.ledger.write_eval(r, acc, cum_air)
+            phases.update(telemetry=top["telemetry"], apply=top["apply"],
+                          eval=top.get("eval", 0.0))
+            res.phase_s.append({"key": top["key"], "sample": top["sample"],
+                                **phases})
+            res.counters.append(launch_deltas(before))
         self.params, self.aux, self._key = params, aux, key
         res.wall_s = time.perf_counter() - t_start
         res.final_accuracy = res.accuracy[-1]
         self._finish_run(res)
         return res
+
+    def _telemetry(self, res, r, rk, stats, dstats, rnd, cum_air) -> float:
+        """A sync round's airtime, record, ledger line and sketches; returns
+        the cumulative airtime."""
+        driver = self.driver
+        # TDMA uplink: total airtime is the sum over clients.
+        if driver is not None:
+            per_client_air = driver.airtime(stats, rnd, self.timings)
+            rec = records_lib.scenario_round_record(
+                r, rnd, per_client_air, len(driver.mode_cfgs))
+        else:
+            per_client_air = latency_lib.round_airtime(
+                stats, self.timings, self.transport_cfg.mode)
+            if self.ecrt_air_scale is not None:
+                # Heterogeneous analytic ECRT: rescale each client's
+                # airtime from the cohort-mean E[tx] to its own.
+                per_client_air = per_client_air * self.ecrt_air_scale
+            rec = records_lib.RoundRecord(round=r)
+        cum_air += float(torch.sum(per_client_air))
+        if self.compression is not None:
+            self._compression_record(rec, stats, rnd)
+        if dstats is not None:
+            cum_air += self._downlink_record(rec, dstats)
+        if self.sketcher is not None:
+            rec.sketches = self.sketcher.round_group(
+                rk, snr_db=rnd.snr_db, est_db=rnd.est_db,
+                ber=stats.client_metrics()["ber"],
+                airtime_s=per_client_air, mode=rnd.mode,
+                active=rnd.active,
+                downlink_ber=None if dstats is None else dstats.ber)
+        self._finish_record(res, rec, stats)
+        return cum_air

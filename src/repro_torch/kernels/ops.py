@@ -61,14 +61,16 @@ def approx_channel(x, seed, noise_power, large_scale_gain, *,
     pad words are exactly 0, so every received set bit there counts).
     Returns ``(x_hat (N,) wire dtype, bit_errors () int32)``."""
     n = x.shape[0]
-    xp = _tiled(x, word_bits, block_words)
-    with spans.span("kernel"):
+    with spans.span("pad", device=True):
+        xp = _tiled(x, word_bits, block_words)
+    with spans.span("kernel", device=True):
         x_hat, errs = ac.approx_channel_kernel(
             xp, seed, noise_power, large_scale_gain,
             bits_per_symbol=bits_per_symbol, fading=fading,
             fade_block=fade_block, clamp_mask=clamp_mask,
             block_words=block_words, word_bits=word_bits)
-    errs = errs - _padding_errors(x_hat[n:], word_bits)
+    with spans.span("unflatten", device=True):
+        errs = errs - _padding_errors(x_hat[n:], word_bits)
     return x_hat[:n], errs
 
 
@@ -113,7 +115,9 @@ def approx_channel_transmit(x: torch.Tensor, key: torch.Tensor, cfg, *,
     n = x.shape[0]
     stats = transport_lib._stats(n * (wb // k), 1, errs, n * wb, n * wb,
                                  device=dev)
-    return x_hat.to(torch.float32), stats
+    with spans.span("unflatten", device=True):
+        x_hat = x_hat.to(torch.float32)
+    return x_hat, stats
 
 
 def approx_channel_batch(x, seeds, noise_powers, large_scale_gains, *,
@@ -127,7 +131,7 @@ def approx_channel_batch(x, seeds, noise_powers, large_scale_gains, *,
     rows (zeros, no PHY work). Returns ``(x_hat (C, N), bit_errors (C,))``."""
     c, n = x.shape
     xp = _tiled(x, word_bits, block_words)
-    with spans.span("kernel"):
+    with spans.span("kernel", device=True):
         x_hat, errs = ac.approx_channel_batch_kernel(
             xp, seeds, noise_powers, large_scale_gains,
             bits_per_symbol=bits_per_symbol, fading=fading,
@@ -199,7 +203,7 @@ def approx_channel_batch_aggregate(x, seeds, noise_powers, large_scale_gains,
     """
     c, n = x.shape
     xp = _tiled(x, word_bits, block_words)
-    with spans.span("kernel"):
+    with spans.span("kernel", device=True):
         agg, errs = ac.approx_channel_batch_aggregate_kernel(
             xp, seeds, noise_powers, large_scale_gains,
             weights.to(torch.float32).contiguous(),

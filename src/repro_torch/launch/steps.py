@@ -22,11 +22,16 @@ prefill and serve steps given a mesh run their forward inside
 there (the reference's auto data axes); the per-client approx step does
 not, as the reference's ``shard_map`` over Manual data axes takes the
 dense dispatch. Inside a :func:`repro_torch.obs.spans.collect`
-scope the approx step times ``grad`` (forward and backward), the
-uplink's ``keys`` and ``kernel`` and ``apply``.
+scope the approx step times its spans (the tree is in
+``repro_torch/obs/spans.py``): the root ``step`` (id: the step's call
+number) and its parts ``grad`` (forward and backward), ``uplink`` (the
+wire casts and ``approx_allreduce``; its parts ``flatten``, ``keys``,
+``pad``, ``kernel`` (K0 alone) and ``unflatten``) and ``apply``.
 """
 
 from __future__ import annotations
+
+import itertools
 
 import torch
 import torch.distributed as dist
@@ -194,24 +199,34 @@ def make_train_step_approx(cfg, opt, transport_cfg, mesh=None):
     wire = (torch.bfloat16 if transport_cfg.wire_dtype == "bfloat16"
             else torch.float32)
 
+    calls = itertools.count()
+
     def step(params, opt_state, batch, key):
+        with spans.span("step", device=True, id=next(calls)):
+            return _step(params, opt_state, batch, key)
+
+    def _step(params, opt_state, batch, key):
         group = _group(mesh)
         local = _local_batch(batch, mesh, _device_of(params))
         # the dense dispatch, as under the reference's Manual data axes
-        with spans.span("grad"), MOE.expert_group(None):
+        with spans.span("grad", device=True), MOE.expert_group(None):
             loss, grads = value_and_grad(cfg, params, local)
-        # grads travel (and all-reduce) in the wire dtype
-        grads = transport_lib.tree_map(lambda g: g.to(wire), grads)
-        grads, stats = agg_lib.approx_allreduce(grads, key, transport_cfg,
-                                                group)
-        grads = transport_lib.tree_map(lambda g: g.to(torch.float32), grads)
+        with spans.span("uplink", device=True):
+            # grads travel (and all-reduce) in the wire dtype
+            with spans.span("flatten", device=True):
+                grads = transport_lib.tree_map(lambda g: g.to(wire), grads)
+            grads, stats = agg_lib.approx_allreduce(grads, key,
+                                                    transport_cfg, group)
+            with spans.span("unflatten", device=True):
+                grads = transport_lib.tree_map(
+                    lambda g: g.to(torch.float32), grads)
         loss = _pmean(loss, group)
         for f in ("data_symbols", "transmissions", "bit_errors", "n_bits",
                   "bits_on_air"):
             v = getattr(stats, f)
             if v is not None:
                 setattr(stats, f, _pmean(v, group))
-        with spans.span("apply"):
+        with spans.span("apply", device=True):
             params, opt_state = opt.update(grads, opt_state, params)
         return params, opt_state, loss, stats
 

@@ -18,8 +18,10 @@ The key schedule is the reference's: ``PRNGKey(0)`` makes the params and
 each step splits the key once. ``approx``/``naive`` run
 ``make_train_step_approx``; ``perfect`` the plain step; ``ecrt`` the plain
 step with per-shard corruption. Each printed step line splits its time
-into ``grad`` (forward and backward), the uplink's ``keys`` and
-``kernel``, and ``apply`` (``repro_torch.obs.spans``).
+into the approx step's spans (``repro_torch.obs.spans``): ``grad``
+(forward and backward), ``uplink`` with its parts in brackets
+(``flatten``, ``keys``, ``pad``, ``kernel``, ``unflatten``), ``apply``
+and the whole ``step``.
 """
 
 from __future__ import annotations
@@ -42,6 +44,25 @@ from repro_torch.obs import spans
 from repro_torch.optim.sgd import sgd as make_sgd
 
 __all__ = ["main", "parse_args"]
+
+UPLINK_PARTS = ("flatten", "keys", "pad", "kernel", "unflatten")
+
+
+def span_parts(phase_s: dict) -> str:
+    """A step's span seconds as the step line prints them: the uplink's
+    parts in brackets after it."""
+    def ms(k):
+        return f"{k} {phase_s[k] * 1e3:.1f}ms"
+
+    out = []
+    for k in phase_s:
+        if k in UPLINK_PARTS:
+            continue
+        out.append(ms(k))
+        if k == "uplink":
+            inner = ", ".join(ms(p) for p in UPLINK_PARTS if p in phase_s)
+            out[-1] += f" ({inner})" if inner else ""
+    return " ".join(out)
 
 
 def parse_args(argv=None):
@@ -115,14 +136,15 @@ def main(argv=None, *, on_step=None):
         key, sk = ks[0], ks[1]
         with spans.collect(device) as phase_s:
             out = step(params, opt_state, batch, sk)
+            # the loss read synchronises: the spans' device pairs resolve
+            # when the scope closes
+            loss = float(out[2])
         params, opt_state, loss_t = out[0], out[1], out[2]
         stats = out[3] if len(out) > 3 else None
-        loss = float(loss_t)
         if on_step is not None:
             on_step(i, loss_t, stats, dict(phase_s))
         if i % max(1, args.steps // 10) == 0 or i == args.steps - 1:
-            parts = " ".join(f"{k} {v * 1e3:.1f}ms"
-                             for k, v in phase_s.items())
+            parts = span_parts(phase_s)
             print(f"step {i:4d} loss {loss:.4f} "
                   f"({time.perf_counter() - t0:.2f}s{'; ' if parts else ''}"
                   f"{parts})")

@@ -1,5 +1,5 @@
 """Observability of the port: typed records, run ledgers, traces, phase
-timers, per-client sketches, and timed spans inside a round.
+timers, per-client sketches, and the span recorder.
 
 Counterpart of ``repro.obs``, module for module:
 
@@ -17,8 +17,19 @@ Counterpart of ``repro.obs``, module for module:
   ``int32`` histograms, quantile estimates, keyed reservoir exemplars);
 * :mod:`repro_torch.obs.metrics` — the per-round :class:`RoundSketcher`
   and the :class:`MetricsRegistry` OpenMetrics exporter;
-* :mod:`repro_torch.obs.spans` — the port's own device-synchronised spans
-  inside a round (``FLResult.phase_s``'s ``*_keys`` / ``*_kernel`` parts).
+* :mod:`repro_torch.obs.spans` — the port's own span recorder, with no
+  counterpart in the reference: spans at every layer boundary, timed
+  without synchronising the device (CUDA event pairs for device work,
+  read at a synchronise the program makes), summed per name by
+  ``collect`` (``FLResult.phase_s``, the LLM step's spans) or kept whole
+  by ``record`` (parent, round or step id, Unix-epoch start and end, the
+  profiler's clock). The span tree: a round is ``round`` > ``key``,
+  ``sample``, ``link``, ``downlink``, ``gradients``, ``uplink`` (>
+  ``keys``, ``kernel``, ``codec``, ``channel``, ``demod``, ``mean``),
+  ``apply``, ``telemetry``, ``eval``; the LLM approx step is ``step`` >
+  ``grad``, ``uplink`` (> ``flatten``, ``keys``, ``pad``, ``kernel``,
+  ``unflatten``), ``apply``. Beside them, ``FLResult.counters``: each
+  round's K0 / K1 / K2 launches.
 
 Every sink is an observer: attaching one changes no number of a run.
 """

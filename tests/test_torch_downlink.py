@@ -475,10 +475,14 @@ def test_fedsgd_driverless_downlink_vs_reference(world, fused):
         ["round", "downlink_airtime_s", "downlink_ber"]] * 3
     check_runs(a, b)
     assert 0 < b.link[0]["downlink_ber"] < 0.5
-    assert set(b.phase_s[0]) == {"downlink", "downlink_keys",
-                                 "downlink_kernel", "gradients", "uplink",
-                                 "uplink_keys", "uplink_kernel", "apply",
-                                 "eval"}
+    assert set(b.phase_s[0]) == {"key", "sample", "downlink",
+                                 "downlink_keys", "downlink_kernel",
+                                 "downlink_codec", "downlink_channel",
+                                 "downlink_demod",
+                                 "gradients", "uplink", "uplink_keys",
+                                 "uplink_kernel", "uplink_codec",
+                                 "uplink_channel", "uplink_demod",
+                                 "uplink_mean", "telemetry", "apply", "eval"}
     print(f"fused={fused}: reference {a.accuracy}, port {b.accuracy}, "
           f"downlink BER {[l['downlink_ber'] for l in b.link]}")
 

@@ -191,8 +191,11 @@ def test_run_fl_trajectory(world, fused):
     np.testing.assert_allclose(b.accuracy, a.accuracy, rtol=0, atol=ACC_TOL)
     np.testing.assert_allclose(b.airtime_s, a.airtime_s, rtol=1e-6)
     assert len(b.phase_s) == 3
-    assert set(b.phase_s[0]) == {"gradients", "uplink", "uplink_keys",
-                                 "uplink_kernel", "apply", "eval"}
+    assert set(b.phase_s[0]) == {"key", "sample", "gradients", "uplink",
+                                 "uplink_keys", "uplink_kernel",
+                                 "uplink_codec", "uplink_channel",
+                                 "uplink_demod", "uplink_mean", "telemetry",
+                                 "apply", "eval"}
 
 
 def test_fused_equals_layered_in_port(world):
@@ -308,5 +311,8 @@ def test_scenario_run_vs_reference(world6, dispatch, fused):
     assert sum(l["n_active"] for l in b.link) < 18  # dropout happened
     np.testing.assert_allclose(b.accuracy, a.accuracy, rtol=0, atol=ACC_TOL)
     np.testing.assert_allclose(b.airtime_s, a.airtime_s, rtol=2**-20)
-    assert set(b.phase_s[0]) == {"link", "gradients", "uplink", "uplink_keys",
-                                 "uplink_kernel", "apply", "eval"}
+    assert set(b.phase_s[0]) == {"key", "sample", "link", "gradients",
+                                 "uplink", "uplink_keys", "uplink_kernel",
+                                 "uplink_codec", "uplink_channel",
+                                 "uplink_demod", "uplink_mean", "telemetry",
+                                 "apply", "eval"}
