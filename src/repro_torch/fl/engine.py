@@ -114,10 +114,12 @@ start, then (scenario runs) ``key -> (key, link-init key)``, then ``key ->
 
 Each round is timed by spans (``repro_torch.obs.spans``; the span tree
 is in its docstring) into ``FLResult.phase_s``: ``key`` (the round key's
-split, threefry on the host), ``sample`` (the numpy minibatch gather and
-its copy to the device), ``gradients`` (FedAvg: the
-local steps), ``uplink``, ``apply``, ``telemetry`` (airtime, the record,
-its ledger line and sketches) and ``eval`` (0.0 on rounds without one).
+split, threefry on the host), ``sample`` (the minibatch gather and its
+copy to the device: whole rows into pinned staging and a non-blocking
+copy on CUDA, :class:`RowStaging`; the algorithm's ``staged_samples``
+counts those rounds), ``gradients`` (FedAvg: the local steps),
+``uplink``, ``apply``, ``telemetry`` (airtime, the record, its ledger
+line and sketches) and ``eval`` (0.0 on rounds without one).
 The device phases (downlink, gradients, uplink, apply, eval) take their
 time from CUDA events on the card, resolved at the phase-end synchronise
 the engine makes (so ``FLResult.phase_s`` reads device time, not enqueue
@@ -194,7 +196,7 @@ from repro_torch.obs import spans
 from repro_torch.obs import timers as timers_lib
 from repro_torch.optim.sgd import sgd as make_sgd
 
-__all__ = ["FLResult", "FedSGD", "FedAvg", "RoundEngine",
+__all__ = ["FLResult", "FedSGD", "FedAvg", "RoundEngine", "RowStaging",
            "resolve_ecrt_analytic", "resolve_scenario", "resolve_downlink",
            "resolve_compression", "select_mode_cfgs",
            "dropout_weighted_mean"]
@@ -327,6 +329,78 @@ def resolve_ecrt_analytic(transport_cfg, num_clients: int, device=None):
     return transport_cfg, air_scale
 
 
+class RowStaging:
+    """The minibatch gather behind both algorithms' ``sample``: whole rows
+    of the clients' data, copied to the device through pinned staging.
+
+    ``client_x`` ``(M, n, ...)`` is viewed once per array as ``(M * n,
+    prod(...))`` rows (a view when it is C-contiguous, else one copy), and
+    ``client_y`` as ``(M * n,)``. A round's draws ``take`` ``(M, ...)``
+    become the flat row indices ``arange(M) * n + take``, and
+    ``np.take(..., mode="clip")`` copies those rows: the indices lie in
+    range by construction, and ``clip`` writes straight into ``out``
+    (``raise`` buffers it). The rows are those of the reference's
+    ``np.take_along_axis`` bit for bit, without its index arrays broadcast
+    to the whole output.
+
+    On CUDA the rows land in one of two pinned host buffers for each
+    (shape, dtype), taken in turn, and cross with a non-blocking copy; a
+    CUDA event recorded after the copy guards the buffer, and the host
+    waits on it before it writes there again (the buffered engine makes no
+    round-end synchronise of its own). The device tensors returned are
+    fresh, never a staging buffer. On any other device there is no
+    staging: the gather returns fresh tensors, as a copy from numpy does.
+    """
+
+    def __init__(self):
+        self._src = (None, None)  # the (client_x, client_y) _rows views
+        self._rows = None
+        self._slots = {}  # (x shape, dtype, y shape) -> two (x, y, event)
+
+    def _flat(self, client_x, client_y):
+        if self._src[0] is not client_x or self._src[1] is not client_y:
+            m, n = client_x.shape[:2]
+            self._src = (client_x, client_y)
+            self._rows = (np.ascontiguousarray(client_x).reshape(m * n, -1),
+                          np.asarray(client_y).reshape(m * n))
+        return self._rows
+
+    def gather(self, client_x, client_y, take, device):
+        """``(xb, yb, staged)``: each client's rows ``take[c]`` of
+        ``client_x`` (``take.shape + client_x.shape[2:]``) and of
+        ``client_y`` as int64 (``take.shape``) on ``device``; ``staged``
+        is True where they crossed through pinned staging."""
+        flat_x, flat_y = self._flat(client_x, client_y)
+        m, n = client_x.shape[:2]
+        idx = (np.arange(m)[:, None] * n + take.reshape(m, -1)).ravel()
+        x_shape = take.shape + tuple(client_x.shape[2:])
+        dev = None if device is None else torch.device(device)
+        if dev is None or dev.type != "cuda":
+            xb = np.take(flat_x, idx, axis=0, mode="clip").reshape(x_shape)
+            yb = np.take(flat_y, idx, mode="clip").astype(np.int64)
+            return (torch.from_numpy(xb).to(device),
+                    torch.from_numpy(yb.reshape(take.shape)).to(device),
+                    False)
+        key = (x_shape, flat_x.dtype.str, take.shape)
+        if key not in self._slots:
+            self._slots[key] = [
+                (torch.from_numpy(np.empty(x_shape, flat_x.dtype))
+                 .pin_memory(),
+                 torch.empty(take.shape, dtype=torch.int64, pin_memory=True),
+                 torch.cuda.Event()) for _ in range(2)]
+        slots = self._slots[key]
+        slots.append(slots.pop(0))  # the buffer used longest ago
+        hx, hy, copied = slots[-1]
+        copied.synchronize()  # the last copy out of this buffer is done
+        np.take(flat_x, idx, axis=0, out=hx.numpy().reshape(idx.size, -1),
+                mode="clip")
+        hy.numpy().reshape(-1)[:] = np.take(flat_y, idx, mode="clip")
+        xb = hx.to(dev, non_blocking=True)
+        yb = hy.to(dev, non_blocking=True)
+        copied.record(torch.cuda.current_stream(dev))
+        return xb, yb, True
+
+
 class FedSGD:
     """The paper's algorithm: one gradient per client per round (eq. (4)-(6)).
 
@@ -343,6 +417,8 @@ class FedSGD:
         grad_fn = grad(cnn.loss_fn)
         self._client_grads = vmap(grad_fn, in_dims=(None, 0, 0))
         self._own_grads = vmap(grad_fn, in_dims=(0, 0, 0))
+        self._rows = RowStaging()
+        self.staged_samples = 0  # rounds whose sample crossed pinned staging
 
     def init_params(self, key, device=None):
         """Global model at round 0."""
@@ -354,13 +430,15 @@ class FedSGD:
 
     def sample(self, rng, client_x, client_y, device=None):
         """One round's per-client minibatches ``(M, B, ...)`` on ``device``,
-        drawn with the reference's numpy calls."""
+        drawn with the reference's numpy calls: a whole-row gather into
+        pinned staging and a non-blocking copy on CUDA
+        (:class:`RowStaging`; ``staged_samples`` counts those rounds), a
+        fresh tensor elsewhere."""
         M = client_x.shape[0]
         take = rng.integers(0, client_x.shape[1], (M, self.batch_per_round))
-        xb = np.take_along_axis(client_x, take[:, :, None, None], axis=1)
-        yb = np.take_along_axis(client_y, take, axis=1)
-        return (torch.from_numpy(np.ascontiguousarray(xb)).to(device),
-                torch.from_numpy(yb.astype(np.int64)).to(device))
+        xb, yb, staged = self._rows.gather(client_x, client_y, take, device)
+        self.staged_samples += staged
+        return xb, yb
 
     def payload(self, params, xb, yb):
         """Per-client gradients of the global model: leaves ``(M, ...)``."""
@@ -408,6 +486,8 @@ class FedAvg:
         self.grad_fn = grad(cnn.loss_fn)
         self._shared = vmap(self._local_delta, in_dims=(None, 0, 0))
         self._own = vmap(self._local_delta, in_dims=(0, 0, 0))
+        self._rows = RowStaging()
+        self.staged_samples = 0  # rounds whose sample crossed pinned staging
 
     def init_params(self, key, device=None):
         """Global model at round 0."""
@@ -419,17 +499,16 @@ class FedAvg:
 
     def sample(self, rng, client_x, client_y, device=None):
         """One round's batches ``(M, local_steps, B, ...)`` on ``device``,
-        drawn with the reference's numpy calls."""
+        drawn with the reference's numpy calls: a whole-row gather into
+        pinned staging and a non-blocking copy on CUDA
+        (:class:`RowStaging`; ``staged_samples`` counts those rounds), a
+        fresh tensor elsewhere."""
         M = client_x.shape[0]
         L, B = self.local_steps, self.batch_per_step
         take = rng.integers(0, client_x.shape[1], (M, L, B))
-        xb = np.take_along_axis(
-            client_x, take.reshape(M, -1)[:, :, None, None], axis=1
-        ).reshape((M, L, B) + client_x.shape[2:])
-        yb = np.take_along_axis(client_y, take.reshape(M, -1),
-                                axis=1).reshape(M, L, B)
-        return (torch.from_numpy(np.ascontiguousarray(xb)).to(device),
-                torch.from_numpy(yb.astype(np.int64)).to(device))
+        xb, yb, staged = self._rows.gather(client_x, client_y, take, device)
+        self.staged_samples += staged
+        return xb, yb
 
     def _local_delta(self, start, x, y):
         """One client's weight delta after ``local_steps`` SGD steps from

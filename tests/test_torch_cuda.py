@@ -1368,3 +1368,88 @@ def test_k0_on_a_hybrid_row_matches_plain(cuda_device):
     assert torch.equal(_bits(got), _bits(want[:n]))
     pad_errs = int(TO._padding_errors(want[None, n:], 32)[0])
     assert float(st.bit_errors) == float(int(werrs) - pad_errs) > 0
+
+
+def _sample_algo(name, batch=8):
+    from repro_torch.configs.mnist_cnn import config
+    from repro_torch.fl import engine as E
+
+    if name == "fedsgd":
+        return E.FedSGD(config(), batch_per_round=batch)
+    return E.FedAvg(config(), local_steps=2, batch_per_step=batch)
+
+
+def _take_along_sample(algo):
+    """``algo`` with the ``sample`` the port had before its whole-row
+    gather: ``np.take_along_axis`` and a pageable copy."""
+
+    def sample(rng, cx, cy, device=None):
+        M = cx.shape[0]
+        shape = ((M, algo.local_steps, algo.batch_per_step)
+                 if hasattr(algo, "local_steps")
+                 else (M, algo.batch_per_round))
+        take = rng.integers(0, cx.shape[1], shape).reshape(M, -1)
+        xb = np.take_along_axis(cx, take[:, :, None, None], axis=1)
+        yb = np.take_along_axis(cy, take, axis=1)
+        return (torch.from_numpy(np.ascontiguousarray(
+                    xb.reshape(shape + cx.shape[2:]))).to(device),
+                torch.from_numpy(yb.reshape(shape).astype(np.int64)).to(
+                    device))
+
+    algo.sample = sample
+    return algo
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo", ["fedsgd", "fedavg"])
+def test_staged_samples_equal_cpu(cuda_device, algo):
+    """Three rounds sampled on the card through pinned staging, the
+    earlier ones kept alive, equal the CPU's rounds bit for bit; each
+    counts one staged sample, and the CPU stages none."""
+    rng = np.random.default_rng(2)
+    cx = rng.uniform(0, 1, (6, 40, 28, 28)).astype(np.float32)
+    cy = rng.integers(0, 10, (6, 40)).astype(np.int32)
+    on_card, on_cpu = _sample_algo(algo), _sample_algo(algo)
+    r_card, r_cpu = np.random.default_rng(9), np.random.default_rng(9)
+    kept = [on_card.sample(r_card, cx, cy, cuda_device) for _ in range(3)]
+    want = [on_cpu.sample(r_cpu, cx, cy, "cpu") for _ in range(3)]
+    torch.cuda.synchronize()
+    assert on_card.staged_samples == 3 and on_cpu.staged_samples == 0
+    for (xg, yg), (xc, yc) in zip(kept, want):
+        assert xg.device.type == yg.device.type == "cuda"
+        assert xg.dtype == xc.dtype and yg.dtype == yc.dtype == torch.int64
+        assert xg.shape == xc.shape and yg.shape == yc.shape
+        assert torch.equal(xg.cpu(), xc) and torch.equal(yg.cpu(), yc)
+    assert not torch.equal(kept[0][0], kept[2][0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo", ["fedsgd", "fedavg"])
+def test_round_engine_staged_equals_take_along(cuda_device, algo):
+    """A short ``RoundEngine.run`` on the card (K2 rounds) gives the same
+    final parameters and accuracies with the staged sample as with the
+    ``take_along_axis`` sample and its pageable copy, and stages one
+    sample a round."""
+    from repro_torch.fl import engine as E
+
+    rng = np.random.default_rng(0)
+    cx = rng.uniform(0, 1, (4, 16, 28, 28)).astype(np.float32)
+    cy = rng.integers(0, 10, (4, 16)).astype(np.int32)
+    cfg = TT.TransportConfig(mode="approx", use_kernel=True,
+                             channel=TCH.ChannelConfig(snr_db=10.0))
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = []
+        for a in (_sample_algo(algo), _take_along_sample(_sample_algo(algo))):
+            eng = E.RoundEngine(a, cfg, cx, cy, cx[0], cy[0], n_rounds=3,
+                                seed=5, eval_every=1, fused_aggregate=True,
+                                device=cuda_device)
+            runs.append((eng.run(), eng.params, a.staged_samples))
+    finally:
+        torch.backends.cudnn.deterministic = was
+    (res, params, staged), (res_p, params_p, staged_p) = runs
+    assert staged == 3 and staged_p == 0
+    assert res.accuracy == res_p.accuracy
+    for k in params:
+        assert torch.equal(_bits(params[k]), _bits(params_p[k])), k

@@ -104,9 +104,119 @@ def test_sample_exact(world):
     for seed in (0, 7):
         xj, yj = ja.sample(np.random.default_rng(seed), cx, cy)
         xt, yt = ta.sample(np.random.default_rng(seed), cx, cy, "cpu")
+        xo, yo = _take_along(ta, np.random.default_rng(seed), cx, cy)
         assert xt.shape == (4, 3, 5, 28, 28) and yt.dtype == torch.int64
         np.testing.assert_array_equal(xt.numpy(), np.asarray(xj))
         np.testing.assert_array_equal(yt.numpy(), np.asarray(yj))
+        np.testing.assert_array_equal(xt.numpy(), xo)
+        np.testing.assert_array_equal(yt.numpy(), yo)
+    assert ta.staged_samples == 0
+
+
+def _take_along(algo, rng, cx, cy):
+    """The draws of ``algo.sample`` gathered by ``np.take_along_axis``, as
+    the port's ``sample`` did before its whole-row gather: ``(xb, yb)``
+    as numpy arrays, the labels int64."""
+    M = cx.shape[0]
+    if isinstance(algo, TE.FedAvg):
+        shape = (M, algo.local_steps, algo.batch_per_step)
+    else:
+        shape = (M, algo.batch_per_round)
+    take = rng.integers(0, cx.shape[1], shape).reshape(M, -1)
+    xb = np.take_along_axis(cx, take[:, :, None, None], axis=1)
+    yb = np.take_along_axis(cy, take, axis=1)
+    return (xb.reshape(shape + cx.shape[2:]),
+            yb.reshape(shape).astype(np.int64))
+
+
+# (clients, samples a client, batch): the benchmark cell's world and a
+# small odd one; "strided" is the odd one as a non-contiguous view.
+SAMPLE_WORLDS = {"cell": (100, 96, 32), "odd": (3, 7, 5),
+                 "strided": (3, 7, 5)}
+SAMPLE_ALGOS = ("fedsgd", "fedavg-1", "fedavg-4")
+
+
+def _sample_world(name):
+    M, n, _ = SAMPLE_WORLDS[name]
+    rng = np.random.default_rng(M * n)
+    if name == "strided":
+        cx = rng.uniform(0, 1, (M, 2 * n, 28, 28)).astype(np.float32)[:, ::2]
+        cy = rng.integers(0, 10, (M, 2 * n)).astype(np.int32)[:, ::2]
+        assert not cx.flags.c_contiguous
+        return cx, cy
+    return (rng.uniform(0, 1, (M, n, 28, 28)).astype(np.float32),
+            rng.integers(0, 10, (M, n)).astype(np.int32))
+
+
+def _sample_algos(name, batch):
+    if name == "fedsgd":
+        return (JEN.FedSGD(j_config(), batch_per_round=batch),
+                TE.FedSGD(t_config(), batch_per_round=batch))
+    return _algos(local_steps=int(name.split("-")[1]), batch_per_step=batch)
+
+
+@pytest.mark.parametrize("seed", [0, 5, 2**31 + 11])
+@pytest.mark.parametrize("world_name", list(SAMPLE_WORLDS))
+@pytest.mark.parametrize("algo", SAMPLE_ALGOS)
+def test_sample_rows_exact(algo, world_name, seed):
+    """The whole-row gather on the CPU equals the reference's ``sample``
+    and the ``take_along_axis`` expression bit for bit, two rounds from
+    one generator; it stages nothing off CUDA."""
+    cx, cy = _sample_world(world_name)
+    ja, ta = _sample_algos(algo, SAMPLE_WORLDS[world_name][2])
+    rj, rt, ro = (np.random.default_rng(seed) for _ in range(3))
+    for _ in range(2):
+        xj, yj = ja.sample(rj, cx, cy)
+        xt, yt = ta.sample(rt, cx, cy, "cpu")
+        xo, yo = _take_along(ta, ro, cx, cy)
+        assert xt.dtype == torch.float32 and yt.dtype == torch.int64
+        assert xt.device.type == yt.device.type == "cpu"
+        assert xt.shape == xo.shape and yt.shape == yo.shape
+        np.testing.assert_array_equal(xt.numpy(), np.asarray(xj))
+        np.testing.assert_array_equal(yt.numpy(), np.asarray(yj))
+        np.testing.assert_array_equal(xt.numpy(), xo)
+        np.testing.assert_array_equal(yt.numpy(), yo)
+    assert ta.staged_samples == 0
+
+
+class _EdgeDraws:
+    """A generator whose ``integers`` draws only 0 and ``high - 1``, in
+    turn: each client's first and last rows, where a flat row index that
+    left its client's rows would be clipped to another's."""
+
+    def integers(self, low, high, size):
+        return np.where(np.arange(int(np.prod(size))) % 2, high - 1,
+                        low).reshape(size)
+
+
+@pytest.mark.parametrize("algo", SAMPLE_ALGOS)
+def test_sample_clip_never_engages(algo):
+    """``mode="clip"`` never moves an index: at the extreme draws every
+    row is the client's own row ``take`` by plain indexing."""
+    cx, cy = _sample_world("odd")
+    _, ta = _sample_algos(algo, 5)
+    xt, yt = ta.sample(_EdgeDraws(), cx, cy, "cpu")
+    take = _EdgeDraws().integers(0, cx.shape[1], yt.shape).reshape(
+        cx.shape[0], -1)
+    for c in range(cx.shape[0]):
+        np.testing.assert_array_equal(
+            xt[c].reshape((-1,) + cx.shape[2:]).numpy(), cx[c, take[c]])
+        np.testing.assert_array_equal(yt[c].reshape(-1).numpy(),
+                                      cy[c, take[c]])
+
+
+@pytest.mark.parametrize("algo", SAMPLE_ALGOS)
+def test_sample_keeps_earlier_rounds(algo):
+    """A round's ``(xb, yb)`` stay as they were after the next rounds are
+    sampled: no round's output aliases a buffer the gather reuses."""
+    cx, cy = _sample_world("odd")
+    _, ta = _sample_algos(algo, 5)
+    rng = np.random.default_rng(3)
+    xb, yb = ta.sample(rng, cx, cy, "cpu")
+    x0, y0 = xb.clone(), yb.clone()
+    later = [ta.sample(rng, cx, cy, "cpu") for _ in range(2)]
+    assert not torch.equal(later[0][0], x0)
+    assert torch.equal(xb, x0) and torch.equal(yb, y0)
 
 
 def _deltas(seed=0):
