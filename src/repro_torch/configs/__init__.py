@@ -2,7 +2,9 @@
 paper's CNN).
 
 Counterpart of ``repro.configs``. Importing this package registers every
-architecture; ``--arch <id>`` in the launchers resolves through
+architecture, and the port-only ``kimi-k2-instruct``
+(``configs/kimi_k2_instruct.py``, which ``get_config`` finds and
+``list_configs`` does not list); ``--arch <id>`` in the launchers resolves through
 :func:`repro_torch.configs.get_config`.
 """
 
@@ -27,6 +29,8 @@ from repro_torch.configs import phi35_moe_42b_a66b  # noqa: F401
 from repro_torch.configs import qwen2_1_5b  # noqa: F401
 from repro_torch.configs import deepseek_coder_33b  # noqa: F401
 from repro_torch.configs import mnist_cnn  # noqa: F401
+# port-only (not in list_configs / ARCH_IDS)
+from repro_torch.configs import kimi_k2_instruct  # noqa: F401
 
 __all__ = ["ModelConfig", "InputShape", "INPUT_SHAPES", "get_config",
            "list_configs", "register", "ARCH_IDS"]

@@ -11,7 +11,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable
 
-__all__ = ["ModelConfig", "InputShape", "INPUT_SHAPES", "register", "get_config", "list_configs"]
+__all__ = ["ModelConfig", "InputShape", "INPUT_SHAPES", "register",
+           "register_port_only", "get_config", "list_configs"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,6 +122,9 @@ INPUT_SHAPES = {
 }
 
 _REGISTRY: dict[str, Callable[[], ModelConfig]] = {}
+# configs the port runs and the reference has no counterpart of; kept out
+# of list_configs(), which mirrors the reference's registry
+_PORT_ONLY: dict[str, Callable[[], ModelConfig]] = {}
 
 
 def register(name: str):
@@ -131,13 +135,24 @@ def register(name: str):
     return deco
 
 
-def get_config(name: str) -> ModelConfig:
-    if name not in _REGISTRY:
-        from repro_torch import configs as _c  # ensure submodules imported
+def register_port_only(name: str):
+    """Register a config that only the port has (``get_config`` finds it
+    after the shared table; ``list_configs`` does not list it)."""
+    def deco(fn):
+        _PORT_ONLY[name] = fn
+        return fn
 
-        if name not in _REGISTRY:
-            raise KeyError(f"unknown arch {name!r}; have {sorted(_REGISTRY)}")
-    return _REGISTRY[name]()
+    return deco
+
+
+def get_config(name: str) -> ModelConfig:
+    if name not in _REGISTRY and name not in _PORT_ONLY:
+        from repro_torch import configs as _c  # ensure submodules imported
+    for table in (_REGISTRY, _PORT_ONLY):
+        if name in table:
+            return table[name]()
+    raise KeyError(f"unknown arch {name!r}; have "
+                   f"{sorted(_REGISTRY) + sorted(_PORT_ONLY)}")
 
 
 def list_configs() -> list[str]:

@@ -1,8 +1,13 @@
-"""Kimi K2 — trillion-parameter MoE (paper-table config) [arXiv:2501.kimi2].
+"""Kimi K2's name on the reference package's table config, mirrored field
+for field (``source`` included, which the parity tests compare).
 
-61 layers, d_model 7168, 64 heads (GQA kv=8, head_dim 128), MoE with 384
-experts top-8 (expert d_ff 2048) + 1 shared expert; the first layer is dense
-(d_ff 18432, the DeepSeek-V3-style warm dense layer). Vocab 163840.
+It is not Kimi K2 as published: 61 layers, d_model 7168, 64 heads with
+grouped-query attention (8 KV heads, head_dim 128), a softmax router with
+capacity drops over 384 experts top-8 (expert d_ff 2048) + 1 shared
+expert, every expert held; the first layer is dense (d_ff 18432). Vocab
+163840. The published model (multi-head latent attention, YaRN, the
+sigmoid ``noaux_tc`` router, dropless) is the port-only
+``kimi-k2-instruct`` (``configs/kimi_k2_instruct.py``).
 """
 
 from repro_torch.configs.base import ModelConfig, register

@@ -103,7 +103,10 @@ def n_active_params(cfg) -> tuple[float, float]:
     """``(active, total)`` parameter counts, MoE-aware, incl. lm_head, from
     the parameter shapes built on the meta device (no memory). Embedding
     tables (not positional) are gathered, not multiplied, so they are not
-    active; an expert leaf counts ``top_k / n_experts`` of itself. Summed
+    active; an expert leaf counts ``top_k / n_experts`` of itself (a
+    config holding a share of the experts, ``n_experts_held`` of
+    ``n_experts``, so counts each held expert at its expected evaluations
+    a token; the MLA leaves count whole). Summed
     as float64 in the reference's leaf order, so the floats are equal."""
     from repro_torch.core import prng
     from repro_torch.models import registry as R

@@ -24,7 +24,8 @@ from repro_torch.core import prng
 
 __all__ = [
     "dtype_of", "dense_init", "embed_init", "rmsnorm", "layernorm", "dot",
-    "rope_freqs", "apply_rope", "swiglu", "gelu_mlp", "sinusoidal_positions",
+    "rope_freqs", "apply_rope", "rotate", "yarn_mscale", "yarn_freqs",
+    "yarn_softmax_scale", "swiglu", "gelu_mlp", "sinusoidal_positions",
     "unstack_tree", "maybe_shard",
 ]
 
@@ -96,8 +97,17 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, fraction: float,
     ``fraction < 1`` is partial rotary (ChatGLM's 2D-RoPE rotates half the
     head dim; the rest passes through unrotated).
     """
-    hd = x.shape[-1]
-    inv = rope_freqs(hd, fraction, theta, x.device)
+    return rotate(x, positions, rope_freqs(x.shape[-1], fraction, theta,
+                                           x.device))
+
+
+def rotate(x: torch.Tensor, positions: torch.Tensor,
+           inv: torch.Tensor) -> torch.Tensor:
+    """Turn adjacent pairs ``(x[2i], x[2i+1])`` of the leading ``2 *
+    len(inv)`` dims by ``position * inv[i]``; the rest passes through.
+
+    x: ``(..., S, H, hd)``; positions: broadcastable to ``(..., S)``.
+    """
     rot = inv.shape[0] * 2
     ang = positions[..., None].to(torch.float32) * inv  # (..., S, rot/2)
     cos = torch.cos(ang)[..., None, :]  # (..., S, 1, rot/2)
@@ -110,6 +120,47 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, fraction: float,
     y2 = x1 * sin + x2 * cos
     yr = torch.stack([y1, y2], dim=-1).reshape(xr.shape)
     return torch.cat([yr.to(x.dtype), x[..., rot:]], dim=-1)
+
+
+def yarn_mscale(factor: float, mscale: float = 1.0) -> float:
+    """YaRN's magnitude factor ``m(s, a) = 0.1 a ln s + 1`` (1 for ``s <=
+    1``)."""
+    return 0.1 * mscale * math.log(factor) + 1.0 if factor > 1 else 1.0
+
+
+def yarn_freqs(dim: int, theta: float, factor: float, original_max: int,
+               beta_fast: float, beta_slow: float,
+               device=None) -> torch.Tensor:
+    """YaRN's inverse frequencies of a ``dim``-wide rotary part (the
+    DeepSeek-V3 form): ``f_e = theta^(-2i/dim)``, ``f_i = f_e / factor``,
+    blended by a ramp between the correction dims of ``beta_fast`` and
+    ``beta_slow``: ``corr(b) = dim ln(L0 / (2 pi b)) / (2 ln theta)``,
+    ``low = floor(corr(beta_fast))``, ``high = ceil(corr(beta_slow))``,
+    ``ramp = clip((i - low) / (high - low), 0, 1)``, ``inv = f_i ramp +
+    f_e (1 - ramp)``. ``factor`` 1 gives plain RoPE."""
+    f_e = rope_freqs(dim, 1.0, theta, device)
+    if factor <= 1:
+        return f_e
+
+    def corr(b):
+        return dim * math.log(original_max / (b * 2 * math.pi)) / (
+            2 * math.log(theta))
+
+    low = max(math.floor(corr(beta_fast)), 0)
+    high = min(math.ceil(corr(beta_slow)), dim - 1)
+    if low == high:
+        high += 0.001
+    i = torch.arange(dim // 2, dtype=torch.float32, device=device)
+    ramp = torch.clamp((i - low) / (high - low), 0.0, 1.0)
+    return f_e / factor * ramp + f_e * (1.0 - ramp)
+
+
+def yarn_softmax_scale(qk_head_dim: int, factor: float,
+                       mscale_all_dim: float) -> float:
+    """The attention's softmax scale under YaRN: ``qk_head_dim^-0.5 *
+    m(factor, mscale_all_dim)^2``."""
+    m = yarn_mscale(factor, mscale_all_dim)
+    return qk_head_dim ** -0.5 * m * m
 
 
 def swiglu(x: torch.Tensor, wi: torch.Tensor, wg: torch.Tensor,

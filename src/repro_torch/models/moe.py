@@ -35,6 +35,11 @@ Where the two packages' arithmetic meets:
   sort-based accumulate of ``index_put``) are the same on every run
   under deterministic algorithms.
 
+A config with ``n_experts_held`` (``configs/kimi_k2_instruct.py``; no
+counterpart in the reference) takes :func:`moe_ffn_held` instead: the
+sigmoid ``noaux_tc`` router over all ``n_experts``, the sequence-wise
+balance loss, and only the held experts' part of the result, dropless.
+
 ``moe_impl="expert_parallel"`` is :func:`moe_ffn_shardmap`, the
 reference's expert-parallel dispatch over a ``torch.distributed`` group:
 each rank routes its own tokens, a pair of ``all_to_all`` exchanges carries
@@ -50,6 +55,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import itertools
 
 import torch
 import torch.distributed as dist
@@ -57,9 +63,12 @@ import torch.nn.functional as F
 
 from repro_torch.core import prng
 from repro_torch.models import layers as L
+from repro_torch.obs import spans
 
 __all__ = ["init_moe", "capacity", "moe_ffn", "moe_ffn_shardmap",
-           "expert_group", "current_expert_group"]
+           "expert_group", "current_expert_group", "init_moe_held",
+           "correction_bias", "route_noaux_tc", "seq_balance_loss",
+           "moe_ffn_held"]
 
 
 def init_moe(key, cfg, dtype):
@@ -289,4 +298,172 @@ def moe_ffn_shardmap(x: torch.Tensor, p, cfg, group=None):
     if cfg.n_shared_experts:
         s_ = p["shared"]
         out = out + L.swiglu(x2, s_["wi"], s_["wg"], s_["wo"])
+    return out.reshape(B, S, D), aux
+
+
+# ------------------------------------------------------------------------
+# One expert-parallel rank's share (Kimi K2 / DeepSeek-V3): the router
+# keeps all ``n_experts`` outputs; this chip computes the part of the
+# result that its experts [expert_offset, expert_offset + n_experts_held)
+# give, for every token routed to them, and the shared expert whole.
+# ------------------------------------------------------------------------
+
+
+def init_moe_held(key, cfg, dtype) -> dict:
+    """Router (float32, ``(D, n_experts)``), the held experts' stacked
+    SwiGLUs ``(Eh, D, F)`` / ``(Eh, F, D)`` and the shared expert's, in
+    draw order ``split(key, 3)``: router ``<- ks[0]``; expert ``e``
+    (of all ``n_experts``) ``<- split(ks[1], n_experts)[e] -> split(., 3)``
+    for ``wi, wg, wo``, so a share holds the whole layer's experts;
+    shared ``<- split(ks[2], 3)``."""
+    D, Fd, E = cfg.d_model, cfg.moe_d_ff, cfg.n_experts
+    Eh, off = cfg.n_experts_held, cfg.expert_offset
+    ks = prng.split(key, 3)
+    ek = prng.split(ks[1], E)
+    held = [prng.split(ek[off + j], 3) for j in range(Eh)]
+
+    def stack(i, shape):
+        return torch.stack([L.dense_init(k[i], shape, dtype=dtype)
+                            for k in held])
+
+    p = {
+        "router": L.dense_init(ks[0], (D, E), dtype=torch.float32),
+        "wi": stack(0, (D, Fd)),
+        "wg": stack(1, (D, Fd)),
+        "wo": stack(2, (Fd, D)),
+    }
+    if cfg.n_shared_experts:
+        Fs = cfg.moe_d_ff * cfg.n_shared_experts
+        kk = prng.split(ks[2], 3)
+        p["shared"] = {
+            "wi": L.dense_init(kk[0], (D, Fs), dtype=dtype),
+            "wg": L.dense_init(kk[1], (D, Fs), dtype=dtype),
+            "wo": L.dense_init(kk[2], (Fs, D), dtype=dtype),
+        }
+    return p
+
+
+_BIAS_TAG = 0xB1A5
+_BIAS_CACHE: dict = {}
+
+
+def correction_bias(cfg, n_layers: int, device) -> torch.Tensor:
+    """The router's correction bias ``(n_layers, n_experts)`` float32:
+    ``normal(fold_in(PRNGKey(router_bias_seed), 0xB1A5)) *
+    router_bias_std``, held fixed (its load-based update is no gradient
+    and not on the uplink); made once a device."""
+    k = (cfg.router_bias_seed, cfg.router_bias_std, n_layers, cfg.n_experts,
+         str(device))
+    if k not in _BIAS_CACHE:
+        # a key of its own seed, outside the round and step key schedule:
+        # lint: ignore[keylane]
+        key = prng.fold_in(prng.PRNGKey(cfg.router_bias_seed,
+                                        device=device), _BIAS_TAG)
+        _BIAS_CACHE.clear()
+        _BIAS_CACHE[k] = (prng.normal(key, (n_layers, cfg.n_experts))
+                          * cfg.router_bias_std)
+    return _BIAS_CACHE[k]
+
+
+def route_noaux_tc(x2: torch.Tensor, router: torch.Tensor,
+                   bias: torch.Tensor, cfg):
+    """``(scores (T, E), sel (T, K), weights (T, K))``, float32: ``s =
+    sigmoid(x W_r)`` (``scoring_func`` "softmax": a softmax), the top
+    ``K`` of ``s + bias`` (one group: ``n_group = topk_group = 1``), and
+    ``s[sel] / sum(s[sel]) * routed_scaling_factor``."""
+    logits = torch.matmul(x2.to(torch.float32), router)
+    if cfg.scoring_func == "sigmoid":
+        s = torch.sigmoid(logits)
+    else:
+        s = torch.softmax(logits, dim=-1)
+    sel = torch.topk(s + bias, cfg.top_k, dim=-1).indices
+    ws = torch.gather(s, 1, sel)
+    w = ws / ws.sum(dim=-1, keepdim=True) * cfg.routed_scaling_factor
+    return s, sel, w
+
+
+def seq_balance_loss(s: torch.Tensor, sel: torch.Tensor, B: int, S: int,
+                     E: int) -> torch.Tensor:
+    """The sequence-wise balance loss over all ``E`` experts, without its
+    weight alpha: per sequence ``f_i = E / (K S) * sum_t 1[i in sel_t]``
+    and ``P_i = 1/S * sum_t s_it / sum_j s_jt``; ``sum_i f_i P_i``, the
+    mean over the ``B`` sequences."""
+    K = sel.shape[-1]
+    hits = torch.zeros((B, E), dtype=torch.float32, device=s.device)
+    hits.scatter_add_(1, sel.reshape(B, S * K),
+                      torch.ones((B, S * K), dtype=torch.float32,
+                                 device=s.device))
+    f = hits * (E / (K * S))
+    P = (s / s.sum(dim=-1, keepdim=True)).reshape(B, S, E).mean(dim=1)
+    return (f * P).sum(dim=-1).mean()
+
+
+def _held_rows(sel: torch.Tensor, cfg, T: int):
+    """The assignments to the held experts, grouped by expert and in token
+    order within each: ``(rows into the flat (T * K) assignments, the
+    groups' ends as a device int32 tensor, loads per held expert as Python
+    ints)``. The loads are the layer's one host read: they size the rows.
+    Past ``capacity`` an expert's assignments are dropped unless
+    ``dropless``."""
+    Eh, off = cfg.n_experts_held, cfg.expert_offset
+    local = sel.reshape(-1) - off
+    held = (local >= 0) & (local < Eh)
+    key = torch.where(held, local, Eh)
+    order = torch.argsort(key, stable=True)
+    counts = torch.bincount(key, minlength=Eh + 1)[:Eh]
+    loads = counts.tolist()
+    if cfg.dropless:
+        ends = torch.cumsum(counts, 0).to(torch.int32)
+        return order[:sum(loads)], ends, loads
+    C = capacity(T, cfg)
+    kept = [min(n, C) for n in loads]
+    starts = itertools.accumulate(loads, initial=0)
+    rows = torch.cat([order[a:a + n] for a, n in zip(starts, kept)])
+    ends = torch.cumsum(torch.clamp(counts, max=C), 0).to(torch.int32)
+    return rows, ends, kept
+
+
+def _held_experts(xs: torch.Tensor, p, ends: torch.Tensor) -> torch.Tensor:
+    """The held experts' SwiGLUs on their rows of ``xs`` (grouped by
+    expert, group ``e`` ending at row ``ends[e]``): three grouped GEMMs
+    over the stacked weights, the gate's SiLU in float32."""
+    h = torch._grouped_mm(xs, p["wi"], offs=ends)
+    g = torch._grouped_mm(xs, p["wg"], offs=ends)
+    act = F.silu(g.to(torch.float32)).to(h.dtype) * h
+    return torch._grouped_mm(act, p["wo"], offs=ends)
+
+
+def moe_ffn_held(x: torch.Tensor, p, cfg, bias: torch.Tensor, *,
+                 obs=None, index: int = 0):
+    """The held experts' part of a routed layer, plus the shared expert:
+    ``x (B, S, D) -> (out (B, S, D), balance loss float32)``.
+
+    Route every token over all ``n_experts`` (:func:`route_noaux_tc`),
+    keep the assignments to the held experts, run their SwiGLUs on their
+    tokens grouped by expert (dropless) as grouped GEMMs whose group ends
+    stay on the device, weight them, sum them into their tokens in
+    float32, and add the shared expert's SwiGLU on every token. The held
+    experts' loads are read on the host once, to size the grouped rows:
+    one synchronise a call, so two a layer and step under a checkpoint
+    (carrying all ``T * K`` assignments instead, with no read, would move
+    about 48 times the rows through the gather and the combine at Kimi
+    K2's 8 of 384). ``obs`` (``obs.spans.capture()``) times the experts as
+    span ``experts`` and counts ``moe_assignments_held`` and
+    ``moe_max_expert_load`` at layer ``index``."""
+    B, S, D = x.shape
+    x2 = x.reshape(-1, D)
+    T, K = x2.shape[0], cfg.top_k
+    s, sel, w = route_noaux_tc(x2, p["router"], bias, cfg)
+    aux = seq_balance_loss(s, sel, B, S, cfg.n_experts)
+    rows, ends, loads = _held_rows(sel, cfg, T)
+    spans.count("moe_assignments_held", index, sum(loads), obs)
+    spans.count("moe_max_expert_load", index, max(loads), obs)
+    tok = torch.div(rows, K, rounding_mode="floor")
+    y = spans.traced("experts", _held_experts, x2[tok], p, ends, state=obs)
+    contrib = y.to(torch.float32) * w.reshape(-1)[rows][:, None]
+    out = torch.zeros((T, D), dtype=torch.float32, device=x.device)
+    out = out.index_add(0, tok, contrib).to(x.dtype)
+    if cfg.n_shared_experts:
+        sh = p["shared"]
+        out = out + L.swiglu(x2, sh["wi"], sh["wg"], sh["wo"])
     return out.reshape(B, S, D), aux

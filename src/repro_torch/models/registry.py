@@ -6,7 +6,10 @@ The port runs every family: ``dense``, ``moe``, ``vlm`` and ``hybrid``
 (``models/ssm.py``) and ``audio`` (``models/audio.py``); a moe config with
 ``moe_impl="expert_parallel"`` runs ``models/moe.py``'s expert-parallel
 dispatch inside a data-parallel step's ``expert_group`` scope and the
-dense dispatch outside it. The shape helpers
+dense dispatch outside it. The port-only ``kimi-k2-instruct`` (a moe
+config with latent attention and a held share of the experts) trains and
+prefills; its ``init_cache`` and ``decode_step`` raise
+``NotImplementedError``. The shape helpers
 (``uses_ring_cache``, ``cache_len_for``, ``supports_shape``,
 ``input_specs``) answer for every family, as they are data.
 """

@@ -8,7 +8,12 @@
   ``first_dense_layers`` dense layers at ``dense_d_ff``; the aux loss is
   summed over the moe layers. ``moe_impl="expert_parallel"`` exchanges
   tokens with the expert owners over the group of the enclosing
-  ``moe.expert_group`` scope (``moe.moe_ffn_shardmap``).
+  ``moe.expert_group`` scope (``moe.moe_ffn_shardmap``). A config with
+  latent attention (``configs/kimi_k2_instruct.py``, port-only) takes
+  ``models/mla.py``'s MLA in every layer and ``moe.moe_ffn_held`` (its
+  held share of the routed experts) in the moe layers, each block traced
+  as span ``mla`` / ``moe`` (forward, recomputation and backward); it
+  trains and prefills, and has no decode.
 * ``vlm`` is the dense decoder behind a projected patch-embedding prefix
   (``batch["patch_embeds"]``; the vision encoder is a stub, as in the
   reference). The prefix is cut after the final norm; decode sees no
@@ -48,7 +53,9 @@ from repro_torch.core import prng
 from repro_torch.core.transport import tree_map
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
+from repro_torch.obs import spans
 
 __all__ = ["init_params", "forward", "loss_fn", "init_cache", "decode_step",
            "check_family"]
@@ -66,6 +73,8 @@ def check_family(cfg) -> None:
 
 
 def _init_attn(key, cfg, dtype):
+    if MLA.is_mla(cfg):
+        return MLA.init_mla(key, cfg, dtype)
     D = cfg.d_model
     hd = cfg.resolved_head_dim
     H, KVH = cfg.n_heads, cfg.n_kv_heads
@@ -112,7 +121,9 @@ def _init_moe_layer(key, cfg, dtype):
         "ln1": torch.zeros((cfg.d_model,), dtype=dtype, device=dev),
         "ln2": torch.zeros((cfg.d_model,), dtype=dtype, device=dev),
         "attn": _init_attn(k1, cfg, dtype),
-        "moe": MOE.init_moe(k2, cfg, dtype),
+        # the MLA moe config holds a share of the routed experts
+        "moe": (MOE.init_moe_held if MLA.is_mla(cfg)
+                else MOE.init_moe)(k2, cfg, dtype),
     }
 
 
@@ -382,6 +393,51 @@ def _moe_layer(x, pl, cfg, positions, window, group):
     return _moe_block(h, pl, cfg, group)
 
 
+def _mla_block(x, p, cfg, positions, tables):
+    h = L.rmsnorm(x, p["ln1"])
+    return x + MLA.attention(h, p["attn"], cfg, positions, tables).to(x.dtype)
+
+
+def _held_moe_block(x, p, cfg, bias, obs, index):
+    h = L.rmsnorm(x, p["ln2"])
+    out, aux = MOE.moe_ffn_held(h, p["moe"], cfg, bias, obs=obs, index=index)
+    return x + out, aux
+
+
+def _mla_dense_layer(x, pl, cfg, positions, tables, obs):
+    x = spans.traced("mla", _mla_block, x, pl, cfg, positions, tables,
+                     state=obs)
+    return _mlp_block(x, pl, cfg)
+
+
+def _mla_moe_layer(x, pl, cfg, positions, tables, bias, obs, index):
+    x = spans.traced("mla", _mla_block, x, pl, cfg, positions, tables,
+                     state=obs)
+    return spans.traced("moe", _held_moe_block, x, pl, cfg, bias, obs, index,
+                        state=obs)
+
+
+def _mla_moe_stack(params, x, cfg, positions):
+    """The layers of an MLA moe config: ``(x, aux)``. The span scope is
+    captured here, where the forward's context is set, and handed to every
+    layer, since a layer's recomputation and its backward run on
+    autograd's thread."""
+    obs = spans.capture()
+    tables = MLA.rope_tables(cfg, x.device)
+    nd = cfg.first_dense_layers
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    if nd:
+        for pl in _unstack_layers(params["dense_layers"], nd):
+            x = _run(_mla_dense_layer, x, pl, cfg, positions, tables, obs)
+    bias = MOE.correction_bias(cfg, cfg.n_layers - nd, x.device)
+    for i, pl in enumerate(_unstack_layers(params["layers"],
+                                           cfg.n_layers - nd)):
+        x, a = _run(_mla_moe_layer, x, pl, cfg, positions, tables, bias[i],
+                    obs, i)
+        aux_total = aux_total + a
+    return x, aux_total
+
+
 def _hybrid_group(x, gp, cfg, positions, window):
     for i in range(cfg.attn_period - 1):
         x = _rglru_block_fwd(x, gp[f"rec{i}"], cfg)
@@ -428,6 +484,8 @@ def forward(params: Params, batch: dict, cfg):
             x = _run(_hybrid_group, x, gp, cfg, positions, cfg.local_window)
         for blk in params["tail"]:
             x = _run(_rec_block, x, blk, cfg, positions, window)
+    elif MLA.is_mla(cfg):
+        x, aux_total = _mla_moe_stack(params, x, cfg, positions)
     else:  # moe
         nd = cfg.first_dense_layers
         if nd:
@@ -466,6 +524,13 @@ def loss_fn(params: Params, batch: dict, cfg):
 # ----------------------------------------------------------------- decode
 
 
+def _no_mla_decode(cfg) -> None:
+    if MLA.is_mla(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: MLA decode (the latent cache) is not implemented; "
+            "the config trains and prefills only")
+
+
 def init_cache(cfg, batch_size: int, cache_len: int, dtype=None,
                device=None) -> dict:
     """Zero KV cache ``{"k", "v"}`` of ``(L, B, cache_len, KVH, hd)``;
@@ -477,6 +542,7 @@ def init_cache(cfg, batch_size: int, cache_len: int, dtype=None,
     three inputs, and ring caches of ``min(cache_len, local_window)``
     slots."""
     check_family(cfg)
+    _no_mla_decode(cfg)
     dtype = dtype or L.dtype_of(cfg)
     nd = cfg.first_dense_layers if cfg.family == "moe" else 0
 
@@ -601,6 +667,7 @@ def decode_step(params, cache, tokens, pos, cfg, *, ring: bool = False):
     cache)``; the input cache is left as it is.
     """
     check_family(cfg)
+    _no_mla_decode(cfg)
     x = _embed_tokens(params, tokens, cfg)
     if cfg.family == "hybrid":
         x, cache = _decode_hybrid(x, params, cache, pos, cfg)

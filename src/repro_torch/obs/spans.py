@@ -58,10 +58,21 @@ The span tree (``FLResult.phase_s`` keys in brackets)::
         unflatten       dev    padding errors, cast and split back
       apply             dev    opt.update
 
+    grad's parts in an MLA moe config (``models/transformer.py``; each
+    sums the block's forward, its checkpoint recomputation and its
+    backward, see :func:`traced`):
+        mla             dev    each MLA block (norm, attention, residual)
+        moe             dev    each held-expert MoE FFN (norm, router,
+                               dispatch, shared expert, residual)
+          experts       dev    the held experts' GEMMs
+
 Counters beside the spans: ``FLResult.counters`` holds one
 ``{"k0", "k1", "k2"}`` dict a round, the round's launches of each kernel
 (deltas of ``kernels.approx_channel.launch_counts()``; 0 on the CPU, whose
-plain versions launch nothing).
+plain versions launch nothing). Inside a :func:`counting` scope,
+:func:`count` keeps per-layer numbers by name and layer: the MLA moe
+config's ``moe_assignments_held`` (token-expert pairs its held experts
+computed) and ``moe_max_expert_load`` (the busiest held expert's tokens).
 
 This module has no counterpart in the reference. :mod:`repro_torch.obs.
 timers` (``PhaseTimers``, the reference's API) stays the engine's
@@ -77,7 +88,8 @@ import time
 
 import torch
 
-__all__ = ["Span", "Recording", "collect", "record", "settle", "span"]
+__all__ = ["Span", "Recording", "collect", "record", "settle", "span",
+           "capture", "traced", "counting", "count"]
 
 
 @dataclasses.dataclass
@@ -141,21 +153,25 @@ class _State:
     root: _Root
     parent: int | None = None  # the innermost open span, in rec.spans
     id: int | None = None
+    counts: tuple = ()   # the dicts of every enclosing counting scope
 
 
 _ACTIVE = contextvars.ContextVar("repro_torch_spans", default=None)
 
 
 @contextlib.contextmanager
-def _scope(device, sums=None, rec=None):
+def _scope(device, sums=None, rec=None, counts=None):
     outer = _ACTIVE.get()
     cuda = torch.device(device).type == "cuda"
+    more = () if counts is None else (counts,)
     if outer is None:
-        state = _State(() if sums is None else (sums,), rec, cuda, _Root())
+        state = _State(() if sums is None else (sums,), rec, cuda, _Root(),
+                       counts=more)
     else:
         state = dataclasses.replace(
             outer, cuda=cuda,
             sums=outer.sums + (() if sums is None else (sums,)),
+            counts=outer.counts + more,
             **({} if rec is None else {"rec": rec, "parent": None}))
     token = _ACTIVE.set(state)
     failed = True
@@ -201,11 +217,48 @@ def settle() -> None:
 
 
 @contextlib.contextmanager
-def span(name: str, *, device: bool = False, id: int | None = None):
+def counting(device):
+    """Keep the :func:`count` calls made inside this scope: yields
+    ``{name: [value per index, in index order]}``, filled when the scope
+    closes (close it after a synchronise of the caller's own)."""
+    counts: dict = {}
+    out: dict = {}
+    with _scope(device, counts=counts):
+        yield out
+    for name, by_index in counts.items():
+        out[name] = [float(v) for _, v in sorted(by_index.items())]
+
+
+def count(name: str, index: int, value, state=None) -> None:
+    """Set counter ``name`` at ``index`` (a layer) to ``value``, a number
+    or a device tensor, in every enclosing :func:`counting` scope; nothing
+    outside one. Setting, not adding: a checkpoint's recomputation counts
+    the same layer again with the same value. ``state``: a scope taken by
+    :func:`capture`, for code that runs outside the context (autograd's
+    thread)."""
+    state = _ACTIVE.get() if state is None else state
+    if state is None:
+        return
+    for d in state.counts:
+        d.setdefault(name, {})[index] = value
+
+
+def capture():
+    """The active scope, or ``None``: hand it to :func:`span`,
+    :func:`traced` and :func:`count` in code that may run where the
+    context is not set (a checkpoint's recomputation and the backward run
+    on autograd's device thread)."""
+    return _ACTIVE.get()
+
+
+@contextlib.contextmanager
+def span(name: str, *, device: bool = False, id: int | None = None,
+         state=None):
     """Time the enclosed step under ``name`` when a scope is active; do
     nothing otherwise. ``device``: the step's work runs on the device;
-    ``id``: the round or step a root span opens."""
-    state = _ACTIVE.get()
+    ``id``: the round or step a root span opens; ``state``: a scope taken
+    by :func:`capture` (default: the active one)."""
+    state = _ACTIVE.get() if state is None else state
     if state is None:
         yield
         return
@@ -236,3 +289,95 @@ def span(name: str, *, device: bool = False, id: int | None = None):
                 d[name] = d.get(name, 0.0) + sec
         if rec is not None:
             rec.t0_ns, rec.t1_ns = state.rec.epoch(t0), state.rec.epoch(t1)
+
+
+class _BackwardSpan:
+    """One device span of a block's backward, opened by its exit marker's
+    backward and closed by its entry marker's."""
+
+    def __init__(self, name: str, state: _State):
+        self.name, self.state = name, state
+        self.start = self.rec = None
+        self.t0 = 0
+
+    def open(self) -> None:
+        st = self.state
+        if st.rec is not None:
+            self.rec = Span(self.name, st.parent, st.id, 0, 0)
+            st.rec.spans.append(self.rec)
+        if st.cuda:
+            self.start = torch.cuda.Event(enable_timing=True)
+            self.start.record()
+        self.t0 = time.perf_counter_ns()
+
+    def close(self) -> None:
+        st = self.state
+        t1 = time.perf_counter_ns()
+        if self.start is not None:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            st.root.pending.append((self.name, self.start, end, st.sums,
+                                    self.rec))
+        else:
+            for d in st.sums:
+                d[self.name] = d.get(self.name, 0.0) + (t1 - self.t0) * 1e-9
+        if self.rec is not None:
+            self.rec.t0_ns, self.rec.t1_ns = (st.rec.epoch(self.t0),
+                                              st.rec.epoch(t1))
+
+
+class _Enter(torch.autograd.Function):
+    """Identity at a block's entry; its backward, the block's last, closes
+    the block's backward span."""
+
+    @staticmethod
+    def forward(ctx, x, bw):
+        ctx.bw = bw
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        ctx.bw.close()
+        return grad, None
+
+
+class _Exit(torch.autograd.Function):
+    """Identity on a block's outputs; its backward, the block's first,
+    opens the block's backward span. It saves its inputs, so that under a
+    checkpoint their unpacking runs the recomputation before the span
+    opens."""
+
+    @staticmethod
+    def forward(ctx, bw, *xs):
+        ctx.bw = bw
+        ctx.save_for_backward(*xs)
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        ctx.saved_tensors  # the recomputation, if any, runs here
+        ctx.bw.open()
+        return (None,) + grads
+
+
+def traced(name: str, fn, x: torch.Tensor, *args, state=None):
+    """``fn(x, *args)`` (a tensor or a tuple of tensors) timed as the
+    device span ``name``: its forward (and a checkpoint's recomputation of
+    it) by a :func:`span`, and, when gradients flow, its backward by a
+    pair of identity markers around it, whose backward functions record
+    the pair on autograd's thread with the captured ``state``. So the
+    span's sum is forward + recomputation + backward. With no scope
+    (``state`` ``None``) it is ``fn(x, *args)`` and nothing more."""
+    if state is None:
+        return fn(x, *args)
+    grads = torch.is_grad_enabled() and x.requires_grad
+    bw = _BackwardSpan(name, state)
+    if grads:
+        x = _Enter.apply(x, bw)
+    with span(name, device=True, state=state):
+        out = fn(x, *args)
+    if not grads:
+        return out
+    if isinstance(out, tuple):
+        return _Exit.apply(bw, *out)
+    return _Exit.apply(bw, out)[0]
