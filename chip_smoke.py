@@ -457,7 +457,11 @@ def sass_symbol_loop(lib, kernel: str):
     cuobjdump.
 
     The symbol loop is the innermost loop that holds a MUFU (the sqrt and
-    divide seeds). Its hot path leaves out every forward branch over at
+    divide seeds). For K0 that is its full chain's loop (``row_full``),
+    which runs every symbol only where the link's settling test is off
+    (rho < 1); the floors printed for K0 take it on the symbols that the
+    launch's counter reports open (``_k0_open_share``), a floor of the
+    chain's work alone. Its hot path leaves out every forward branch over at
     most 150 instructions that hold a call, a local-memory access or a
     global load: the slow paths of sqrt and divide and the large-argument
     reduction of sincos, which no argument of this chain reaches.
@@ -525,6 +529,16 @@ def _issue_floor_ms(symbols: int, sass: dict, sms: int, mhz: float) -> float:
     each when every scheduler issues one warp instruction per clock (4 per
     SM, 32 lanes each) at the card's top SM clock."""
     return symbols * sass["total"] / (sms * 4 * 32 * mhz * 1e6) * 1e3
+
+
+def _k0_open_share(counts: dict) -> float:
+    """The share of K0's symbols that its settling test left to the full
+    chain, from the counters of a ``spans.counting`` scope around one
+    launch (1.0 where the scope caught none: the plain version on the
+    CPU). K0's full-chain floor holds on that share of its symbols; the
+    magnitude tests of the rest come on top."""
+    slow, total = counts.get("k0_symbols_slow"), counts.get("k0_symbols")
+    return slow[0] / total[0] if slow and total else 1.0
 
 
 # ------------------------------------------------------------------- phases
@@ -2518,6 +2532,7 @@ def phase_trainer(torch, device, small: bool, sass: dict, mhz) -> tuple:
     from repro_torch.kernels import ops, ref
     from repro_torch.launch import steps, train
     from repro_torch.models import registry as R
+    from repro_torch.obs import spans
     from repro_torch.optim.sgd import sgd
 
     _log(f"== phase 5i: the LLM trainer ({LLM_ARCH}, "
@@ -2677,7 +2692,9 @@ def phase_trainer(torch, device, small: bool, sass: dict, mhz) -> tuple:
     t_new.append(clock.median_ms(new, reps, warmup=1))
     t_old.append(clock.median_ms(old, reps, warmup=1))
     k0_ms, k1c1_ms = min(t_new), min(t_old)
-    out, errs = new()
+    with spans.counting(device) as k0_counts:
+        out, errs = new()
+        clock.sync()
     out1, errs1 = old()
     # The count is int32 in both packages (the kernel's atomicAdd, the
     # reference's sum): it wraps past 2**31 - 1, and the TxStats float32
@@ -2709,12 +2726,15 @@ def phase_trainer(torch, device, small: bool, sass: dict, mhz) -> tuple:
          f"{b['ops'] / 1e12:.2f} T ops -> {b['ops_ms']:.2f} ms)")
     if sass and mhz:
         sms = torch.cuda.get_device_properties(device).multi_processor_count
-        for name, tag, ms in (("K0", "k0", k0_ms), ("K1 at C=1", "k1",
-                                                     k1c1_ms)):
-            floor = _issue_floor_ms(tiles * 1024 * 16, sass[tag], sms, mhz)
+        for name, tag, ms, share in (
+                ("K0", "k0", k0_ms, _k0_open_share(k0_counts)),
+                ("K1 at C=1", "k1", k1c1_ms, 1.0)):
+            floor = share * _issue_floor_ms(tiles * 1024 * 16, sass[tag], sms,
+                                            mhz)
             _log(f"  {name}: issue-rate floor {floor:.2f} ms "
                  f"({sass[tag]['total']} instructions a symbol of "
-                 f"{tag}'s SASS); kernel at {floor / ms:.0%} of it")
+                 f"{tag}'s SASS on the {share:.1%} of symbols it ran the "
+                 f"full chain on); kernel at {floor / ms:.0%} of it")
 
     # (e) A row of 2**28 + 1,024 words (tile 262,144 sees tile 0's draws:
     # the uint32 symbol counter wraps there, as in the reference).
@@ -2978,11 +2998,13 @@ def _llm_train(torch, device, cfg, next_batch, n_steps: int, label: str,
         ks = prng.split(key)
         key, sk = ks[0], ks[1]
         extra = step_extra(params, b) if step_extra else {}
-        with spans.collect(device) as phase_s:
+        with spans.collect(device) as phase_s, \
+                spans.counting(device) as step_counts:
             params, opt_state, loss, stats = step(params, opt_state, b, sk)
             loss = float(loss)  # a synchronise: the spans resolve at close
         records.append({
             "loss": loss, "extra": extra, "phase_s": dict(phase_s),
+            "k0_open": _k0_open_share(step_counts),
             "k0": ac.launch_counts()["k0"], "sk": sk,
             "errors": float(stats.bit_errors), "n_bits": float(stats.n_bits),
             "peak": _gib(torch, device)})
@@ -3020,10 +3042,13 @@ def _llm_train(torch, device, cfg, next_batch, n_steps: int, label: str,
          f"{b['ops_ms']:.2f} ms)")
     if sass and mhz:
         sms = torch.cuda.get_device_properties(device).multi_processor_count
-        floor = _issue_floor_ms(tiles * 1024 * 16, sass["k0"], sms, mhz)
-        k0_ms = min(r["phase_s"].get("kernel", 0) for r in records) * 1e3
+        fast = min(records, key=lambda r: r["phase_s"].get("kernel", 0))
+        k0_ms = fast["phase_s"].get("kernel", 0) * 1e3
+        floor = fast["k0_open"] * _issue_floor_ms(tiles * 1024 * 16,
+                                                  sass["k0"], sms, mhz)
         _log(f"  K0: issue-rate floor {floor:.2f} ms ({sass['k0']['total']} "
-             f"instructions a symbol); the fastest step's K0 span at "
+             f"instructions a symbol on the {fast['k0_open']:.1%} of symbols "
+             f"it ran the full chain on); the fastest step's K0 span at "
              f"{floor / k0_ms:.0%} of it")
     return records, b0, n_params, counts
 
@@ -3625,6 +3650,7 @@ def _k0_long_row(torch, device, n_words: int, sass: dict, mhz, small: bool):
     from repro_torch.core import prng
     from repro_torch.kernels import approx_channel as ac
     from repro_torch.kernels import ops
+    from repro_torch.obs import spans
 
     tcfg, clock = _llm_tcfg(), Clock(torch, device)
     tiles = -(-n_words // 1024)
@@ -3641,7 +3667,9 @@ def _k0_long_row(torch, device, n_words: int, sass: dict, mhz, small: bool):
     reps = 3 if device.type == "cuda" else 1
     ms = clock.median_ms(k0, reps, warmup=1)
     _reset_peak(torch, device)
-    out, errs = k0()
+    with spans.counting(device) as counts:
+        out, errs = k0()
+        clock.sync()
     peak = _gib(torch, device)
     diff, max_errs, errs_plain, plain_ms = _k0_vs_plain(
         torch, device, xp, {"k0": out}, seed, npow, gain,
@@ -3666,9 +3694,12 @@ def _k0_long_row(torch, device, n_words: int, sass: dict, mhz, small: bool):
            "pass 2**32")
     if sass and mhz:
         sms = torch.cuda.get_device_properties(device).multi_processor_count
-        floor = _issue_floor_ms(tiles * 1024 * 16, sass["k0"], sms, mhz)
+        share = _k0_open_share(counts)
+        floor = share * _issue_floor_ms(tiles * 1024 * 16, sass["k0"], sms,
+                                        mhz)
         _log(f"  K0 alone: issue-rate floor {floor:.2f} ms "
-             f"({sass['k0']['total']} instructions a symbol); kernel at "
+             f"({sass['k0']['total']} instructions a symbol on the "
+             f"{share:.1%} of symbols it ran the full chain on); kernel at "
              f"{floor / ms:.0%} of it")
     return ms, plain_ms, b, max_errs["k0"]
 
@@ -3928,6 +3959,7 @@ def phase_times(torch, device, small: bool, launches: dict, sass: dict,
     from repro_torch.core import aggregation, prng, transport
     from repro_torch.kernels import approx_channel as ac
     from repro_torch.kernels import ops, ref
+    from repro_torch.obs import spans
 
     _log("== phase 6: times at the main-path shape")
     c, n = (4, 2048) if small else (100, 22528)
@@ -3956,7 +3988,9 @@ def phase_times(torch, device, small: bool, launches: dict, sass: dict,
              f"{torch.device(where).type}: {ms:.3f} ms (median of {reps})")
     # K0: the first client's row alone, against the plain version.
     x0, s0, p0, g0 = x[0].contiguous(), seeds[0], npow[0], gains[0]
-    xk0, _ = ac.approx_channel_kernel(x0, s0, p0, g0, **kw)
+    with spans.counting(device) as k0_counts:
+        xk0, _ = ac.approx_channel_kernel(x0, s0, p0, g0, **kw)
+        clock.sync()
     xp0, _, edges0 = ref.approx_channel_batch_ref(
         x[:1], seeds[:1], npow[:1], gains[:1], with_edges=True, **kw)
     diff0 = _bits(torch, xk0) != _bits(torch, xp0[0])
@@ -3996,7 +4030,9 @@ def phase_times(torch, device, small: bool, launches: dict, sass: dict,
              f"{b['ops_ms']:.4f} ms); library call: n/a")
         counts = sass.get(name)
         if counts and mhz:
-            symbols = (1 if name == "k0" else c) * n * 16
+            # K0's full chain runs on the symbols its test left open
+            share = _k0_open_share(k0_counts) if name == "k0" else 1.0
+            symbols = (1 if name == "k0" else c) * n * 16 * share
             sms = torch.cuda.get_device_properties(device).multi_processor_count
             floor = _issue_floor_ms(symbols, counts, sms, mhz)
             _log(f"  {name}: issue-rate floor {floor:.4f} ms ({counts['total']}"

@@ -34,6 +34,7 @@ import torch
 
 from repro_torch.kernels import build as build_lib
 from repro_torch.kernels import ref as ref_lib
+from repro_torch.obs import spans
 
 __all__ = [
     "approx_channel_kernel",
@@ -58,7 +59,7 @@ _U = ctypes.c_uint32
 # pointer to 32 bits). Each returns cudaGetLastError() as an int.
 SIGNATURES = {
     "repro_k0_approx_channel_row": [
-        _P, _P, _P, _P, _P, _P,         # x, out, errs, seed, npow, gain
+        _P, _P, _P, _P, _P, _P, _P,     # x, out, errs, slow, seed, npow, gain
         _L, _I, _I, _I, _I, _I,         # N, k, fading, wb, bw, fade_block
         _U, _F, _F, _P],                # clamp, amp, inv, stream
     "repro_k1_approx_channel_batch": [
@@ -301,7 +302,11 @@ def approx_channel_kernel(
     and none of K1. The row may be longer than ``MAX_ROW_WORDS``: each
     word's tile is its index over ``block_words`` as ``uint32`` (the
     reference's ``program_id``), and the int32 count wraps modulo 2**32.
-    Returns ``(x_hat (N,) wire dtype, bit_errors () int32)``.
+    Inside a ``spans.counting`` scope a CUDA call sets the counters
+    ``k0_symbols`` (the row's symbols) and ``k0_symbols_slow`` (those the
+    kernel's settling test left to the full chain; a device tensor, read
+    when the scope closes). Returns ``(x_hat (N,) wire dtype, bit_errors
+    () int32)``.
     """
     if x.device.type == "cpu":
         return ref_lib.ref_approx_channel(
@@ -322,19 +327,24 @@ def approx_channel_kernel(
                   word_bits=word_bits, fade_block=fade_block)
     n = row.shape[1]
     out = torch.empty_like(row[0])
-    # Blocks add their counts into errs, so it starts at 0.
-    errs = torch.zeros((1,), dtype=torch.int32, device=dev)
+    # Blocks add their counts into both, so they start at 0: the int32
+    # error count in the low half of counts[0], the symbols the settling
+    # test left to the full chain in counts[1].
+    counts = torch.zeros((2,), dtype=torch.int64, device=dev)
+    errs = counts[:1].view(torch.int32)[0]
     amp, inv = _constellation(bits_per_symbol)
     rc = _library().repro_k0_approx_channel_row(
-        row.data_ptr(), out.data_ptr(), errs.data_ptr(), seeds.data_ptr(),
-        npow.data_ptr(), gain.data_ptr(), n, bits_per_symbol,
-        _FADING[fading], word_bits, block_words, fade_block,
-        clamp_mask & 0xFFFFFFFF, amp, inv,
+        row.data_ptr(), out.data_ptr(), counts.data_ptr(),
+        counts[1:].data_ptr(), seeds.data_ptr(), npow.data_ptr(),
+        gain.data_ptr(), n, bits_per_symbol, _FADING[fading], word_bits,
+        block_words, fade_block, clamp_mask & 0xFFFFFFFF, amp, inv,
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"K0 launch failed: cudaError {rc}")
     approx_channel_kernel.launches += 1
-    return out, errs[0]
+    spans.count("k0_symbols_slow", 0, counts[1])
+    spans.count("k0_symbols", 0, n * (word_bits // bits_per_symbol))
+    return out, errs
 
 
 approx_channel_kernel.launches = 0

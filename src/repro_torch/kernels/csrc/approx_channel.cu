@@ -94,17 +94,78 @@
 //   addition is exact modulo 2**32, so the int32 count equals K1's and
 //   the plain version's, wrapped or not;
 // - __launch_bounds__(256, 6) caps it at 40 registers. Measured (-Xptxas
-//   -v): 33-40 registers over the 18 instances, 39 for the main-path one,
-//   no spills, 32 bytes of shared memory; so 6 blocks, 48 working warps
-//   (12 a scheduler, against 1.5), sit on each SM.
-// Its symbol loop is 302 SASS instructions (267 for K1: the four inner
-// fmix32s and their index are now in the loop, the two shared loads
-// gone), an issue-rate floor of 256.7 ms at the LLM row. On an H100 80GB
-// HBM3 at 700 W (chip_smoke phase 5i) it runs there at 86% of that rate,
-// 297.7 ms against 347.9 ms for K1 at C = 1 in the same run. A row
-// shorter than the card is bound by one thread's chain of symbols
-// instead, which K1's shared table shortens: at N = 22,528 (phase 6)
-// neither is reliably faster, 0.12-0.21 ms each.
+//   -v, with the settled pass below): 40 registers in each of the 18
+//   instances, 16-36 bytes of spill stores (16 in the main-path one), 8,256
+//   bytes of shared memory (8 warps' queues); so 6 blocks, 48 working
+//   warps (12 a scheduler), sit on each SM. K1's and K2's lines are the
+//   same as before it (K1 32-35 registers, K2 40, no spills).
+// The full chain's symbol loop (row_full) is 302 SASS instructions (267
+// for K1: the four inner fmix32s and their index are in the loop, the two
+// shared loads gone), an issue-rate floor of 256.7 ms at the untied LLM
+// row, where it ran at 86% of that rate: 297.7 ms against 347.9 ms for K1
+// at C = 1 (chip_smoke phase 5i, H100 80GB HBM3 at 700 W). A row shorter
+// than the card is bound by one thread's chain of symbols instead, which
+// K1's shared table shortens: at N = 22,528 (phase 6) neither is
+// reliably faster, 0.12-0.21 ms each.
+//
+// K0's settled pass: the same bits from fewer instructions. Lemma: a
+// symbol decodes to itself whenever the equalised error e = n / c has |e|
+// < amp, half the distance between levels, for every Gray-QAM point,
+// inner or edge. |n|^2 = 2 a nscale^2 and |c|^2 = 2 b (sg kSqrtHalf)^2
+// (awgn: sg^2), a = -ln u1n, b = -ln u1f: the magnitudes come from the two
+// magnitude uniforms alone, and the phases only turn n and c. With rho =
+// (0.9 amp sg kSqrtHalf / nscale)^2 (float32, from the link as load_link
+// gives it), a < rho b (awgn: a < rho) gives |e| < 0.9 amp. The kernel
+// tests u1n > u1f^m, m = 2^j <= rho (j = floor(log2 rho), at most 4), so a
+// < m b; it tests it on the lower bound b 2^-23 of u1n and the upper
+// bound (b + 1) 2^-23 of u1f (b the hash's top 23 bits), each squaring
+// rounded upward, so the float test implies the exact one. Awgn: u1n >
+// 2^-q, q = floor(rho log2 e) <= 30, so a < q ln 2 <= rho (1 + 2u).
+// The margin covers the chain's rounding (u = 2^-24): libdevice's logf
+// (1 ulp) and the rounded sqrt give r = sqrt(2 a) (1 + 2.5u); sincosf (2
+// ulp) leaves |(cos, sin)| within 1 +- 2^-21.5; the r cos, nscale, sg and
+// kSqrtHalf products add u each: |n_f| <= sqrt(2a) nscale (1 + 2^-19),
+// |c_f| >= sqrt(2b) sg kSqrtHalf (1 - 2^-19). c2 = |c_f|^2 (1 + 2u); each
+// numerator's products and sum are within 3u |n_f| |c_f|; the divide adds
+// u: |e_f| <= |n_f| / |c_f| (1 + 9u). rho's own roundings add 5u. So |e_f|
+// < 0.9 amp (1 + 2^-17). The demod adds y's rounding, the level's, inv's,
+// y * inv's and + (L - 1)'s, at most 6 L u in v: |v - level| < 0.45 (1 +
+// 2^-17) + 96 u < 0.4501 for L <= 16, and round(v) is the sent level. The
+// test is on only for rho in [1, 1e30], sg in [1e-5, 1e15] and nscale <=
+// 1e15 (NaN: off). A settled symbol has u1f <= 1 - 2^-24 (u1f = 1 never
+// passes), so b >= 2^-24 and |c|^2 >= 2^-24 sg^2 >= 5.9e-18: no clamp at
+// 1e-20, an underflowed product moves e by at most 2^-149 / 5.9e-18, and
+// nothing overflows below 3.5e31. tests/test_torch_k0_settle.py holds the
+// lemma against the plain chain and mirrors the test bit for bit.
+// Two passes a page (a warp's 32 words; row_settled):
+// - settle: each lane tests its word's S symbols, two magnitude hashes
+//   each, into a mask of open ones: 798 SASS instructions for the main
+//   instance's 16 symbols, 49.9 a symbol, 485 of them on the integer
+//   pipe, which issues half a warp a clock, so the pass is bound there;
+// - drain: the warp queues the open symbols, a round of one a lane by
+//   ballot (37 instructions a round, about 7 rounds a page at 20% open),
+//   into its queue of 64 entries in shared memory (at most 31 waiting and
+//   32 pushed; 8 bytes each: the index times kPhi and the word's page,
+//   lane and shift), and runs 32 at a time through the unchanged
+//   channel_symbol, 321 instructions a round (302 of them the chain's).
+//   A symbol received otherwise ORs its flips into its word's diff; a
+//   page's words are written once the queue holds none of its symbols.
+// On the LLM cells' link (QPSK, 10 dB, Rayleigh: rho 4.05, m = 4), 80.0%
+// of the symbols settle, so a symbol costs 49.9 + 0.2 * 321 = 114 issue
+// slots, an issue-rate floor of 84.6 ms at the tied qwen2-1.5b row (N =
+// 1,543,714,816); it runs in 120.7 ms there against 255.2 for the full
+// chain on every symbol (the kernel without this pass, in the same run),
+// and in 218.1 ms against 461.5 at kimi-k2's 2,792,119,296 words (H100
+// 80GB HBM3 at 700 W). The test pays where rho >= 1 (QPSK at 4 dB: m = 1,
+// 213.2 ms); below, the launch runs row_full on every symbol (QPSK at 3
+// dB: 250.2 ms, 16-QAM at 10 dB: 140.2 against 142.9). row_full is kept
+// for that side because it is faster there: row_settled with every
+// symbol open (the test skipped, each symbol queued and drained) took
+// 336.2 ms at QPSK 3 dB, 183.2 at 16-QAM 10 dB and 101.4 at 256-QAM 10
+// dB against row_full's 250.3, 140.2 and 75.8, and 297.4, 163.1 and 89.5
+// with a round in which each lane runs its own symbol when all 32 hold
+// one (same run). The kernel counts the open symbols in a 64-bit
+// counter, one atomic a block.
 //
 // Arithmetic matches the plain PyTorch version (kernels/ref.py) bit for
 // bit: every multiply, add and divide is an explicit round-to-nearest
@@ -121,6 +182,7 @@
 namespace {
 
 constexpr uint32_t kPhi = 0x9E3779B9u;
+constexpr uint32_t kPhiInverse = 0x144CBC89u;  // kPhi * kPhiInverse = 1 mod 2**32
 constexpr uint32_t kStreamNoise = 0x9E3779B9u;
 constexpr uint32_t kStreamFade = 0x7FEB352Du;
 constexpr uint32_t kStreamPhase = 0x68E31DA4u;
@@ -140,7 +202,13 @@ constexpr int kMaxSymbols = 16;   // symbols per word: 32 / k, k >= 2
 // K0: a block is up to kRowThreads consecutive words of the row, one a
 // thread.
 constexpr int kRowThreads = 256;
+constexpr int kRowWarps = kRowThreads / 32;
 constexpr int kRowMinBlocks = 6;  // per SM: caps registers at 40
+// K0's settled pass: a warp's queue of symbols the test leaves open (at
+// most 31 waiting and 32 pushed), and the most squarings of the fading
+// test (m = 2^j <= 16, 94% settled at any rho >= 16).
+constexpr int kQueue = 64;
+constexpr int kMaxSquarings = 4;
 
 __device__ __forceinline__ uint32_t fmix32(uint32_t x) {
   x ^= x >> 16;
@@ -452,28 +520,100 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   if (blk.slot == 0 && blk.in_row) agg[blk.i] = acc;
 }
 
-// K0: one client's row, one thread per word. A block is blockDim.x
-// (at most kRowThreads) consecutive words and walks the row in steps of
-// the whole grid; each thread computes its symbols' hash halves in
-// registers and sums its words' flips, and the block adds its total with
-// one atomicAdd. The row length and the word index are 64-bit, so a row
-// may hold any number of words the card can: the word's tile is its
-// 64-bit index over bw, cast to uint32 as the reference casts
-// program_id, kept with the word's place in the tile and stepped by the
-// grid stride's whole tiles and remainder, so no 64-bit division runs in
-// the loop and nothing assumes that bw divides 2**32.
+// K0's settling test, uniform over a launch. rho = (0.9 amp sg kSqrtHalf
+// / nscale)^2, so that -ln u1n < rho * -ln u1f gives |n / c| < 0.9 amp
+// (fading), and -ln u1n < rho gives it for awgn; see the note at the top.
+struct Settle {
+  bool on;           // rho >= 1 and the link's scales in range (NaN: off)
+  int squarings;     // fading: m = 2^squarings <= rho
+  float awgn_floor;  // awgn: 2^-q, q = floor(rho log2 e) <= 30
+};
+
+__device__ __forceinline__ Settle settle_params(const Link& link, float amp) {
+  const float t = __fdiv_rn(
+      __fmul_rn(__fmul_rn(0.9f, amp), __fmul_rn(link.sg, kSqrtHalf)),
+      link.nscale);
+  const float rho = __fmul_rn(t, t);
+  Settle st;
+  st.on = rho >= 1.0f && rho <= 1e30f && link.sg >= 1e-5f &&
+          link.sg <= 1e15f && link.nscale <= 1e15f;
+  // floor(log2 rho), exact for a normal rho >= 1
+  st.squarings = min((__float_as_int(rho) >> 23) - 127, kMaxSquarings);
+  const int q = static_cast<int>(
+      fminf(floorf(__fmul_rn(rho, 1.44269502f)), 30.0f));  // float32(log2 e)
+  st.awgn_floor = __int_as_float((127 - q) << 23);
+  return st;
+}
+
+// Exact bounds on uniform01(h) from its top 23 bits b = h >> 9:
+// b 2^-23 <= uniform01(h) <= (b + 1) 2^-23 (both representable, and
+// rounding is monotone), each one subtraction from the float 1 + b 2^-23.
+__device__ __forceinline__ float uniform_below(uint32_t h) {
+  return __fsub_rn(__uint_as_float(0x3F800000u | (h >> 9)), 1.0f);
+}
+__device__ __forceinline__ float uniform_above(uint32_t h) {
+  return __fsub_rn(__uint_as_float(0x3F800000u | (h >> 9)), 0x1.fffffcp-1f);
+}
+
+// Whether the symbol whose index times kPhi is ni (its hashes' input) is
+// settled: its two magnitude uniforms alone prove that it decodes to
+// itself. Fading: u1n > u1f^m, m = 2^squarings, tested on a lower bound
+// of u1n and an upper bound of u1f with the power rounded upward, so that
+// it holds in exact arithmetic; u1f = 1 (c = 0) never passes. Awgn: u1n
+// > 2^-q.
+template <int FADING>
+__device__ __forceinline__ bool settled(uint32_t ni, uint32_t seed,
+                                        const Settle& st,
+                                        uint32_t fade_block) {
+  const float u1n = uniform_below(fmix32(seed ^ fmix32(ni + kStreamNoise)));
+  if (FADING == kAwgn) return u1n > st.awgn_floor;
+  const uint32_t fi =
+      FADING == kBlockRayleigh ? ni * kPhiInverse / fade_block * kPhi : ni;
+  float pw = uniform_above(fmix32(seed ^ fmix32(fi + kStreamFade)));
+#pragma unroll
+  for (int j = 0; j < kMaxSquarings; ++j) {
+    if (j < st.squarings) pw = __fmul_ru(pw, pw);
+  }
+  return u1n > pw;
+}
+
+// A warp's queue of open symbols, and per page (the warp's current and
+// previous 32 words) and lane the sent word and the flips found in it.
+struct RowQueue {
+  uint2 q[kQueue];  // (symbol index * kPhi, page lane | shift << 6)
+  uint32_t word[2 * 32];
+  uint32_t diff[2 * 32];
+};
+
+// count (<= 32) open symbols from queue position head, one a lane,
+// through the full chain; a symbol received otherwise ORs its flips into
+// its word's diff. Every lane of the warp calls it.
+template <int K, int FADING>
+__device__ __forceinline__ void drain(RowQueue& rq, uint32_t head,
+                                      uint32_t count, const Link& link,
+                                      const Params& p) {
+  const uint32_t lane = threadIdx.x & 31;
+  __syncwarp();
+  if (lane < count) {
+    const uint2 e = rq.q[(head + lane) % kQueue];
+    const uint32_t owner = e.y & 63u, shift = e.y >> 6;
+    const uint32_t sym = (rq.word[owner] >> shift) & ((1u << K) - 1u);
+    const uint32_t rx = channel_symbol<K, FADING>(
+        sym, link.seed, symbol_hash<FADING>(e.x * kPhiInverse, p.fade_block),
+        link.nscale, link.sg, p.amp, p.inv);
+    if (rx != sym) atomicOr(&rq.diff[owner], (rx ^ sym) << shift);
+  }
+  __syncwarp();
+}
+
+// The full chain on every symbol of the thread's words (the row kernel
+// before the settling test): its words' flips.
 template <int K, int FADING, int WB>
-__global__ void __launch_bounds__(kRowThreads, kRowMinBlocks)
-    k0_approx_channel_row(const typename Wire<WB>::T* __restrict__ x,
-                          typename Wire<WB>::T* __restrict__ out,
-                          int* __restrict__ errs,
-                          const uint32_t* __restrict__ seed,
-                          const float* __restrict__ npow,
-                          const float* __restrict__ gain, int64_t n,
-                          Params p) {
+__device__ __forceinline__ uint32_t row_full(
+    const typename Wire<WB>::T* __restrict__ x,
+    typename Wire<WB>::T* __restrict__ out, int64_t n, const Params& p,
+    const Link& link) {
   constexpr int S = WB / K;
-  __shared__ uint32_t warp_flips[kRowThreads / 32];
-  const Link link = load_link(seed, npow, gain, 0);
   const uint32_t bw = static_cast<uint32_t>(p.bw);
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   // the stride in whole tiles (mod 2**32) and the words left over
@@ -510,13 +650,151 @@ __global__ void __launch_bounds__(kRowThreads, kRowMinBlocks)
       ++tile;
     }
   }
-  flips = __reduce_add_sync(0xffffffffu, flips);
-  if ((threadIdx.x & 31) == 0) warp_flips[threadIdx.x >> 5] = flips;
+  return flips;
+}
+
+// The settled pass: the same walk as row_full, a warp's 32 consecutive
+// words at a time (a page). Each lane tests its word's S symbols into a
+// mask of open ones; the warp then queues them, each lane its lowest open
+// symbol a round, by ballot, and runs them 32 at a time through the full
+// chain (drain). A page's words are written once the queue holds none of
+// its symbols: at the end of the next page, where one short drain
+// finishes any that are left. A last page past the row, with nothing
+// open, finishes the row's last. Returns the thread's flips and, on lane
+// 0, the warp's open symbols.
+template <int K, int FADING, int WB>
+__device__ __forceinline__ uint2 row_settled(
+    const typename Wire<WB>::T* __restrict__ x,
+    typename Wire<WB>::T* __restrict__ out, int64_t n, const Params& p,
+    const Link& link, const Settle& st, RowQueue& rq) {
+  constexpr int S = WB / K;
+  const uint32_t lane = threadIdx.x & 31;
+  const uint32_t bw = static_cast<uint32_t>(p.bw);
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  const uint32_t stride_tiles = static_cast<uint32_t>(stride / bw);
+  const uint32_t stride_words = static_cast<uint32_t>(stride % bw);
+  int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  uint32_t tile = static_cast<uint32_t>(i / bw);
+  uint32_t w = static_cast<uint32_t>(i % bw);
+  uint32_t flips = 0;
+  // queue positions (uint32, mod 2**32), the same on every lane: entries
+  // [head, tail) wait; the previous page's end at prev_end
+  uint32_t head = 0, tail = 0, prev_end = 0;
+  uint32_t page = 0;
+  // the warp's words are consecutive: it walks while its first is in the
+  // row, and one page more
+  for (; i - lane < n + stride; i += stride) {
+    const bool in_row = i < n;
+    rq.word[page * 32 + lane] = in_row ? static_cast<uint32_t>(x[i]) : 0u;
+    rq.diff[page * 32 + lane] = 0;
+    // interleave: symbol s of word i has index base + s * bw + w (uint32,
+    // so it wraps at tile 262,144 as the reference's does); ni is it
+    // times kPhi, the hashes' input
+    const uint32_t ni = (tile * (bw * S) + w) * kPhi;
+    uint32_t open = 0;
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      if (!settled<FADING>(ni + s * (bw * kPhi), link.seed, st, p.fade_block)) {
+        open |= 1u << s;
+      }
+    }
+    if (!in_row) open = 0;
+    for (;;) {  // uniform: a round queues each lane's lowest open symbol
+      const uint32_t have = __ballot_sync(0xffffffffu, open != 0);
+      if (have == 0) break;
+      if (open != 0) {
+        const uint32_t s = __ffs(open) - 1;
+        rq.q[(tail + __popc(have & ((1u << lane) - 1u))) % kQueue] =
+            make_uint2(ni + s * (bw * kPhi),
+                       (page * 32 + lane) | (WB - K * (s + 1)) << 6);
+        open &= open - 1;
+      }
+      tail += __popc(have);
+      if (tail - head >= 32) {
+        drain<K, FADING>(rq, head, 32, link, p);
+        head += 32;
+      }
+    }
+    if (i >= stride) {  // uniform: every page but the first has one before it
+      if (static_cast<int32_t>(prev_end - head) > 0) {
+        drain<K, FADING>(rq, head, tail - head, link, p);
+        head = tail;
+      }
+      // the previous page's words: all their symbols' flips are in diff
+      const uint32_t prev = (page ^ 1) * 32 + lane;
+      if (i - stride < n) {
+        const uint32_t u = rq.word[prev];
+        const uint32_t u_hat = (u ^ rq.diff[prev]) & p.clamp;
+        out[i - stride] = static_cast<typename Wire<WB>::T>(u_hat);
+        flips += __popc(u ^ u_hat);
+      }
+    }
+    prev_end = tail;
+    page ^= 1;
+    tile += stride_tiles;
+    w += stride_words;
+    if (w >= bw) {
+      w -= bw;
+      ++tile;
+    }
+  }
+  return make_uint2(flips, lane == 0 ? tail : 0u);
+}
+
+// K0: one client's row, one thread per word. A block is blockDim.x
+// (at most kRowThreads) consecutive words and walks the row in steps of
+// the whole grid. With the settling test on (rho >= 1), the warps run
+// row_settled; otherwise each thread runs the full chain on its words
+// (row_full), computing its symbols' hash halves in registers. Threads
+// sum their words' flips and the block adds its total with one
+// atomicAdd; the block's open symbols go to the 64-bit counter slow the
+// same way (off: one thread adds the row's n * S). The row length and
+// the word index are 64-bit, so a row may hold any number of words the
+// card can: the word's tile is its 64-bit index over bw, cast to uint32
+// as the reference casts program_id, kept with the word's place in the
+// tile and stepped by the grid stride's whole tiles and remainder, so no
+// 64-bit division runs in the loop and nothing assumes that bw divides
+// 2**32.
+template <int K, int FADING, int WB>
+__global__ void __launch_bounds__(kRowThreads, kRowMinBlocks)
+    k0_approx_channel_row(const typename Wire<WB>::T* __restrict__ x,
+                          typename Wire<WB>::T* __restrict__ out,
+                          int* __restrict__ errs,
+                          unsigned long long* __restrict__ slow,
+                          const uint32_t* __restrict__ seed,
+                          const float* __restrict__ npow,
+                          const float* __restrict__ gain, int64_t n,
+                          Params p) {
+  __shared__ uint32_t warp_flips[kRowWarps];
+  __shared__ uint32_t warp_open[kRowWarps];
+  __shared__ RowQueue queues[kRowWarps];
+  const Link link = load_link(seed, npow, gain, 0);
+  const Settle st = settle_params(link, p.amp);
+  uint2 c;  // (flips, open symbols)
+  RowQueue& rq = queues[threadIdx.x >> 5];
+  if (st.on) {
+    c = row_settled<K, FADING, WB>(x, out, n, p, link, st, rq);
+  } else {
+    c = make_uint2(row_full<K, FADING, WB>(x, out, n, p, link), 0u);
+    if (blockIdx.x == 0 && threadIdx.x == 0) {
+      atomicAdd(slow, static_cast<unsigned long long>(n) * (WB / K));
+    }
+  }
+  c.x = __reduce_add_sync(0xffffffffu, c.x);
+  if ((threadIdx.x & 31) == 0) {
+    warp_flips[threadIdx.x >> 5] = c.x;
+    warp_open[threadIdx.x >> 5] = c.y;
+  }
   __syncthreads();
   if (threadIdx.x == 0) {
     uint32_t total = 0;
-    for (unsigned j = 0; j < blockDim.x / 32; ++j) total += warp_flips[j];
+    unsigned long long open = 0;
+    for (unsigned j = 0; j < blockDim.x / 32; ++j) {
+      total += warp_flips[j];
+      open += warp_open[j];
+    }
     if (total != 0) atomicAdd(reinterpret_cast<unsigned int*>(errs), total);
+    if (open != 0) atomicAdd(slow, open);
   }
 }
 
@@ -545,9 +823,9 @@ RowOccupancy row_occupancy() {
 // than kRowThreads / 32 warps an SM gets blocks of fewer warps, so that it
 // still spreads over every SM.
 template <int K, int FADING, int WB>
-void launch_k0(const void* x, void* out, int* errs, const uint32_t* seed,
-               const float* npow, const float* gain, int64_t n,
-               const Params& p, cudaStream_t stream) {
+void launch_k0(const void* x, void* out, int* errs, unsigned long long* slow,
+               const uint32_t* seed, const float* npow, const float* gain,
+               int64_t n, const Params& p, cudaStream_t stream) {
   using T = typename Wire<WB>::T;
   const RowOccupancy occ = row_occupancy<K, FADING, WB>();
   const int64_t sms = std::max(occ.sms, 1);
@@ -558,8 +836,8 @@ void launch_k0(const void* x, void* out, int* errs, const uint32_t* seed,
   const int grid = static_cast<int>(
       std::min<int64_t>(blocks, static_cast<int64_t>(occ.sms) * occ.per_sm));
   k0_approx_channel_row<K, FADING, WB><<<grid, threads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(out), errs, seed, npow, gain,
-      n, p);
+      static_cast<const T*>(x), static_cast<T*>(out), errs, slow, seed, npow,
+      gain, n, p);
 }
 
 template <int K, int FADING, int WB>
@@ -639,17 +917,18 @@ struct K2Launcher {
 
 // Plain C interface, loaded with ctypes. Each launches on `stream` and
 // returns cudaGetLastError() (cudaErrorInvalidValue for an unsupported
-// k / fading / word_bits). Outputs are allocated by the caller; errs must
-// be zeroed, since blocks add their counts into it.
+// k / fading / word_bits). Outputs are allocated by the caller; errs (and
+// K0's slow) must be zeroed, since blocks add their counts into them.
 extern "C" int repro_k0_approx_channel_row(
-    const void* x, void* out, int* errs, const uint32_t* seed,
-    const float* npow, const float* gain, int64_t n, int k, int fading,
-    int word_bits, int bw, int fade_block, uint32_t clamp, float amp,
-    float inv, void* stream) {
+    const void* x, void* out, int* errs, unsigned long long* slow,
+    const uint32_t* seed, const float* npow, const float* gain, int64_t n,
+    int k, int fading, int word_bits, int bw, int fade_block, uint32_t clamp,
+    float amp, float inv, void* stream) {
   // Params::n is K1's and K2's int row length; K0 reads n instead.
   const Params p{0, bw, fade_block, clamp, 1, amp, inv};
-  if (!dispatch<K0Launcher>(k, fading, word_bits, x, out, errs, seed, npow,
-                            gain, n, p, static_cast<cudaStream_t>(stream))) {
+  if (!dispatch<K0Launcher>(k, fading, word_bits, x, out, errs, slow, seed,
+                            npow, gain, n, p,
+                            static_cast<cudaStream_t>(stream))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

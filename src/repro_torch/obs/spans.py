@@ -72,7 +72,9 @@ Counters beside the spans: ``FLResult.counters`` holds one
 plain versions launch nothing). Inside a :func:`counting` scope,
 :func:`count` keeps per-layer numbers by name and layer: the MLA moe
 config's ``moe_assignments_held`` (token-expert pairs its held experts
-computed) and ``moe_max_expert_load`` (the busiest held expert's tokens).
+computed) and ``moe_max_expert_load`` (the busiest held expert's tokens),
+and K0's ``k0_symbols`` (the row's symbols) and ``k0_symbols_slow`` (those
+its settling test left to the full chain), at index 0.
 
 This module has no counterpart in the reference. :mod:`repro_torch.obs.
 timers` (``PhaseTimers``, the reference's API) stays the engine's

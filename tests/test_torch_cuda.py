@@ -56,6 +56,8 @@ from repro_torch.core import transport as TT  # noqa: E402
 from repro_torch.kernels import approx_channel as TAC  # noqa: E402
 from repro_torch.kernels import ops as TO  # noqa: E402
 from repro_torch.kernels import ref as TR  # noqa: E402
+from test_torch_k0_settle import (  # noqa: E402
+    row_symbol_indices, settled_symbols)
 
 G0 = 1e-3
 EDGE = 1e-4
@@ -922,20 +924,22 @@ def test_k0_short_rows_match_plain(cuda_device, n):
         want[None, n:], 32)[0]) and int(errs) > 0
 
 
-def _k0_row(device, n, word_bits=32, seed=0):
-    """A noisy link and an ``(n,)`` payload in [-0.9, 0.9] on ``device``."""
+def _k0_row(device, n, word_bits=32, seed=0, snr_db=10):
+    """A noisy link at ``snr_db`` and an ``(n,)`` payload in [-0.9, 0.9]
+    on ``device``."""
     g = torch.Generator().manual_seed(seed)
     x = (torch.rand(n, generator=g) * 1.8 - 0.9).to(
         torch.bfloat16 if word_bits == 16 else torch.float32)
     return (x.to(device), torch.tensor(2**32 - 12345, dtype=torch.int64),
-            torch.tensor(G0 / 10, device=device),
+            torch.tensor(G0 / 10 ** (snr_db / 10), device=device),
             torch.tensor(G0, device=device))
 
 
-def _k0_against_plain(x, seed, npow, gain, **kw):
+def _k0_against_plain(x, seed, npow, gain, some_errors=True, **kw):
     """K0's row kernel on ``x`` and the plain version on the card: one K0
     launch, no K1 launch, the same words bit for bit, the same int32
-    errors."""
+    errors (some, unless ``some_errors`` is False: a link so clean that
+    the plain version flips no bit)."""
     before = TAC.launch_counts()
     got, errs = TAC.approx_channel_kernel(x, seed, npow, gain, **kw)
     after = TAC.launch_counts()
@@ -943,23 +947,43 @@ def _k0_against_plain(x, seed, npow, gain, **kw):
     want, werrs = TR.ref_approx_channel(x, seed.to(x.device), npow, gain,
                                         **kw)
     assert torch.equal(_bits(got), _bits(want))
-    assert errs.dtype == torch.int32 and int(errs) == int(werrs) > 0
+    assert errs.dtype == torch.int32 and int(errs) == int(werrs)
+    assert (int(errs) > 0) == some_errors
     return got
 
 
+def _k0_counted(device, launch):
+    """``launch()`` inside a ``spans.counting`` scope: its result, and
+    whether K0 ran the full chain on every symbol (``row_full``: the
+    link's settling test off, as at QPSK 3 dB, rho 0.81)."""
+    from repro_torch.obs import spans
+
+    with spans.counting(device) as counts:
+        out = launch()
+        torch.cuda.synchronize()
+    return out, counts["k0_symbols_slow"] == counts["k0_symbols"]
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("snr_db", [-10, 0, 10, 30])
 @pytest.mark.parametrize("word_bits", [32, 16])
 @pytest.mark.parametrize("fading", ["rayleigh", "awgn", "block_rayleigh"])
 @pytest.mark.parametrize("k", [2, 4, 8])
-def test_k0_row_kernel_matches_plain(cuda_device, k, fading, word_bits):
+def test_k0_row_kernel_matches_plain(cuda_device, k, fading, word_bits,
+                                     snr_db):
     """Every (k, fading, word_bits) instance of K0's row kernel on a
-    three-tile row at 10 dB against the plain version, and against K1's
-    row 0 of the same payload as a C=1 batch."""
-    x, seed, npow, gain = _k0_row(cuda_device, 3 * 1024, word_bits, seed=k)
+    three-tile row against the plain version, and against K1's row 0 of
+    the same payload as a C=1 batch: at -10 and 0 dB the settling test is
+    off for every k (the full chain on every symbol), at 10 dB on for
+    QPSK (m = 4), at 30 dB on for every k (m = 16, 16 and 4), where AWGN
+    QPSK and 16-QAM flip no bit in the plain version either."""
+    x, seed, npow, gain = _k0_row(cuda_device, 3 * 1024, word_bits, seed=k,
+                                  snr_db=snr_db)
     kw = dict(bits_per_symbol=k, fading=fading, word_bits=word_bits,
               fade_block=48,
               clamp_mask=0xBFFF if word_bits == 16 else 0xBFFFFFFF)
-    got = _k0_against_plain(x, seed, npow, gain, **kw)
+    clean = fading == "awgn" and snr_db == 30 and k < 8
+    got = _k0_against_plain(x, seed, npow, gain, some_errors=not clean, **kw)
     via_k1, _ = TAC.approx_channel_batch_kernel(
         x[None], seed.reshape(1).to(cuda_device), npow.reshape(1),
         gain.reshape(1), **kw)
@@ -967,30 +991,38 @@ def test_k0_row_kernel_matches_plain(cuda_device, k, fading, word_bits):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("snr_db", [3, 10])
 @pytest.mark.parametrize("tiles,block_words", [(1, 1024), (7, 1024),
                                                (7, 100), (5, 300),
                                                (22, 1024)])
-def test_k0_row_lengths_around_the_grid(cuda_device, tiles, block_words):
+def test_k0_row_lengths_around_the_grid(cuda_device, tiles, block_words,
+                                        snr_db):
     """Rows of 1, 7 and 22 tiles and rows of tiles of 100 and 300 words:
     short rows get blocks of fewer than 256 threads (one warp at 1 tile,
     six at 22 tiles of 1,024 words, the main path's width), and the last
     block is partial where the words are no multiple of it; every word is
-    reached once."""
+    reached once, by the full chain at 3 dB and the settled pass at 10."""
     x, seed, npow, gain = _k0_row(cuda_device, tiles * block_words,
-                                  seed=tiles)
-    _k0_against_plain(x, seed, npow, gain, block_words=block_words)
+                                  seed=tiles, snr_db=snr_db)
+    _, full = _k0_counted(cuda_device, lambda: _k0_against_plain(
+        x, seed, npow, gain, block_words=block_words))
+    assert full == (snr_db == 3)
 
 
 @pytest.mark.cuda
-def test_k0_long_padded_row_through_ops(cuda_device):
+@pytest.mark.parametrize("snr_db", [3, 10])
+def test_k0_long_padded_row_through_ops(cuda_device, snr_db):
     """1,000 tiles plus a 300-word tail through ``ops.approx_channel``:
     more blocks than the persistent grid holds, so every block walks the
-    row in grid strides and the last stride is ragged; the padding's
-    errors are subtracted as on the CPU."""
+    row in grid strides and the last stride is ragged, by the full chain
+    at 3 dB and the settled pass at 10; the padding's errors are
+    subtracted as on the CPU."""
     n = 1000 * 1024 + 300
-    x, seed, npow, gain = _k0_row(cuda_device, n, seed=1000)
+    x, seed, npow, gain = _k0_row(cuda_device, n, seed=1000, snr_db=snr_db)
     before = TAC.launch_counts()
-    got, errs = TO.approx_channel(x, seed.to(cuda_device), npow, gain)
+    (got, errs), full = _k0_counted(cuda_device, lambda: TO.approx_channel(
+        x, seed.to(cuda_device), npow, gain))
+    assert full == (snr_db == 3)
     assert TAC.launch_counts() == dict(before, k0=before["k0"] + 1)
     want, werrs = TR.ref_approx_channel(
         torch.nn.functional.pad(x, (0, 1024 - 300)), seed.to(cuda_device),
@@ -1001,20 +1033,61 @@ def test_k0_long_padded_row_through_ops(cuda_device):
 
 
 @pytest.mark.cuda
-def test_k0_row_across_the_counter_wrap(cuda_device):
+def test_k0_queue_drains_many_times_a_warp(cuda_device):
+    """QPSK at 5 dB (rho 1.28, m = 1): half the symbols stay open, so each
+    warp's queue fills and drains about eight times a page of 32 words,
+    over five pages a warp on 1,000 tiles; every word equals the plain
+    version's, and so does the error count."""
+    x, seed, npow, gain = _k0_row(cuda_device, 1000 * 1024, seed=55,
+                                  snr_db=5)
+    _k0_against_plain(x, seed, npow, gain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("snr_db", [0, 5, 10, 30])
+@pytest.mark.parametrize("fading", ["rayleigh", "awgn", "block_rayleigh"])
+def test_k0_open_symbol_counter(cuda_device, fading, snr_db):
+    """K0's 64-bit counter of open symbols equals the settling test's
+    mirror (``test_torch_k0_settle.settled_symbols``) on the plain draws:
+    every symbol at 0 dB (the test off), about half at 5 dB, a fifth at
+    10 dB (Rayleigh); ``k0_symbols`` is the row's symbols. 300 tiles, so
+    that symbols whose two bounds sit one step apart occur."""
+    from repro_torch.obs import spans
+
+    n = 300 * 1024
+    x, seed, npow, gain = _k0_row(cuda_device, n, seed=snr_db, snr_db=snr_db)
+    kw = dict(fading=fading, fade_block=48)
+    with spans.counting(cuda_device) as counts:
+        TAC.approx_channel_kernel(x, seed, npow, gain, **kw)
+        torch.cuda.synchronize()
+    gidx = row_symbol_indices(n, 2, device=cuda_device)
+    open_ = ~settled_symbols(int(seed), gidx, float(npow), float(gain),
+                             bits_per_symbol=2, fading=fading, fade_block=48)
+    assert counts == {"k0_symbols_slow": [float(open_.sum())],
+                      "k0_symbols": [float(n * 16)]}
+    if snr_db == 0:
+        assert bool(open_.all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("snr_db", [3, 10])
+def test_k0_row_across_the_counter_wrap(cuda_device, snr_db):
     """A row of 262,145 tiles: its symbol counter wraps to 0 at tile
     262,144 (uint32, as the reference's). Tiles 262,143 and 262,144
     against the plain version given ``first_tile``, and tile 262,144 with
-    tile 0's payload receives tile 0's words."""
+    tile 0's payload receives tile 0's words; the full chain at 3 dB, the
+    settled pass at 10."""
     tiles = 262_145
     wrap = 262_144
     g = torch.Generator(device=cuda_device).manual_seed(3)
     x = torch.randn(tiles * 1024, generator=g, device=cuda_device) * 1e-3
     x[wrap * 1024:] = x[:1024]
     seed = torch.tensor(987654321, dtype=torch.int64, device=cuda_device)
-    npow = torch.tensor(G0 / 10, device=cuda_device)
+    npow = torch.tensor(G0 / 10 ** (snr_db / 10), device=cuda_device)
     gain = torch.tensor(G0, device=cuda_device)
-    got, _ = TAC.approx_channel_kernel(x, seed, npow, gain)
+    (got, _), full = _k0_counted(cuda_device, lambda: (
+        TAC.approx_channel_kernel(x, seed, npow, gain)))
+    assert full == (snr_db == 3)
     lo = (wrap - 1) * 1024
     want, _ = TR.ref_approx_channel(x[lo:], seed, npow, gain,
                                     first_tile=wrap - 1)
@@ -1023,19 +1096,24 @@ def test_k0_row_across_the_counter_wrap(cuda_device):
 
 
 @pytest.mark.cuda
-def test_k0_row_past_word_2_31(cuda_device):
+@pytest.mark.parametrize("snr_db", [3, 10])
+def test_k0_row_past_word_2_31(cuda_device, snr_db):
     """A row of 2,097,153 tiles, 2**31 + 1,024 words, one past K1's and
-    K2's int row index: K0 takes it. Tiles 0, 262,143, 262,144 (the
-    counter wrap), 2,097,151 and 2,097,152 (either side of word 2**31)
-    against the plain version given ``first_tile``; the row's flipped
-    bits equal K0's int32 count modulo 2**32."""
+    K2's int row index: K0 takes it, by the full chain at 3 dB (its
+    counter adds the row's 2**35 + 16,384 symbols at once) and the
+    settled pass at 10. Tiles 0, 262,143, 262,144 (the counter wrap),
+    2,097,151 and 2,097,152 (either side of word 2**31) against the plain
+    version given ``first_tile``; the row's flipped bits equal K0's int32
+    count modulo 2**32."""
     tiles = 2_097_153
     g = torch.Generator(device=cuda_device).manual_seed(5)
     x = torch.randn(tiles * 1024, generator=g, device=cuda_device) * 1e-3
     seed = torch.tensor(123456789, dtype=torch.int64, device=cuda_device)
-    npow = torch.tensor(G0 / 10, device=cuda_device)
+    npow = torch.tensor(G0 / 10 ** (snr_db / 10), device=cuda_device)
     gain = torch.tensor(G0, device=cuda_device)
-    got, errs = TAC.approx_channel_kernel(x, seed, npow, gain)
+    (got, errs), full = _k0_counted(cuda_device, lambda: (
+        TAC.approx_channel_kernel(x, seed, npow, gain)))
+    assert full == (snr_db == 3)
     for t in (0, 262_143, 262_144, 2_097_151, 2_097_152):
         sl = slice(t * 1024, (t + 1) * 1024)
         want, _ = TR.ref_approx_channel(x[sl], seed, npow, gain,
