@@ -1246,7 +1246,7 @@ def phase_link(torch, device, small: bool) -> tuple:
         xb, kb, sb = transport._gather_bucket(x, keys, snr_vec, idx, count,
                                               cap)
         seeds = ops._seed_from_key(kb).to(device)
-        npow, gains = ops._link_params(cfg, cap, sb.to(device), device)
+        npow, gains = transport._link_params(cfg, cap, sb.to(device), device)
         wb = torch.zeros(cap)
         wb[:count] = w_all[torch.from_numpy(idx)]
         k = cfg.scheme.bits_per_symbol
@@ -1540,13 +1540,13 @@ def _broadcast_vs_plain(torch, device, small: bool) -> None:
     key, pk = prng.split(key)
     _, rk = prng.split(key)
     params = cnn.init_params(pk, config(), device)
-    flat, _ = transport._flatten_global_tree(params)
+    flat, _ = transport.pack(transport.tree_flatten(params)[0])
     cfg = transport.TransportConfig(
         mode="approx", modulation="qpsk",
         channel=channel.ChannelConfig(snr_db=10.0), use_kernel=True)
     keys = transport.client_keys(rk, c, transport.DOWNLINK_KEY_LANE)
     seeds = ops._seed_from_key(keys).to(device)
-    npow, gains = ops._link_params(cfg, c, None, device)
+    npow, gains = transport._link_params(cfg, c, None, device)
     g = torch.Generator().manual_seed(12)
     whole = (torch.randn((22528,), generator=g) * 1e-2).to(device)
     for name, x in (("round-0 model", flat), ("whole tiles", whole)):
@@ -1791,8 +1791,8 @@ def _sparse_leg_vs_plain(torch, device, leg) -> None:
     xg, sg = transport._batch_with_keys(values, keys, cfg, snr_vec)
     tile = torch.nn.functional.pad(values, (0, (-k) % 1024))
     seeds = ops._seed_from_key(keys).to(device)
-    npow, gains = ops._link_params(cfg, c, snr_vec, device)
-    wb, mask, kbits = ops._transport_kernel_params(cfg)
+    npow, gains = transport._link_params(cfg, c, snr_vec, device)
+    wb, mask, kbits = transport._transport_kernel_params(cfg)
     xp, ep = ref.approx_channel_batch_ref(
         tile, seeds, npow, gains, bits_per_symbol=kbits,
         fading=cfg.channel.fading, fade_block=cfg.channel.block_len,

@@ -94,8 +94,10 @@ def approx_allreduce(local_grads: Any, key: torch.Tensor,
     Each rank corrupts its contribution under ``fold_in(key, rank)``, then
     the float32 sum over the group is divided by its size (the
     reference's ``psum(g.astype(f32)) / mul``; a group of one returns the
-    corrupted float32 leaves as they are). Returns ``(grads float32,
-    stats)``; ``stats`` are this rank's.
+    corrupted leaves cast to float32, and no copy where they are float32
+    already). Returns ``(grads, stats)``: float32 leaves whatever the
+    leaves' or the wire's dtype, so a caller needs no cast after it;
+    ``stats`` are this rank's.
     """
     mul = group_size(group)
     with spans.span("keys"):

@@ -52,13 +52,20 @@ single-client call bit for bit.
 Pytrees are dicts and lists of tensors, nested. They flatten in
 ``jax.tree_util.tree_flatten`` order — dict keys sorted, list items in
 order — so every float lands in the same tile and symbol slot, and so
-gets the same draws, as in the reference. Parameters keep the reference's layout (FC weights are
-``(in, out)``).
+gets the same draws, as in the reference. Parameters keep the reference's
+layout (FC weights are ``(in, out)``). :func:`pack` casts a tree's
+leaves into one float32 row, padded once: to whole tiles where the
+front-end's one config runs a kernel, which takes it as it is, else not
+at all (a mixed-mode table's kernel bucket is padded where it is
+gathered). :func:`unpack` returns per-leaf views of the received row.
+:func:`_kernel_path` alone turns a config and keys into kernel arguments.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import math
 from typing import Any
 
 import numpy as np
@@ -71,6 +78,7 @@ from repro_torch.core import float_codec as fc
 from repro_torch.core import keylanes
 from repro_torch.core import modulation as mod_lib
 from repro_torch.core import prng
+from repro_torch.kernels import ops as kernel_ops
 from repro_torch.obs import spans
 
 __all__ = [
@@ -198,11 +206,18 @@ class TxStats:
         return out
 
 
+def _f32(v, device) -> torch.Tensor:
+    """``v`` as a float32 tensor on ``device``. A Python number is filled
+    there: made on the host and copied, it would block the host until the
+    device's queue drains."""
+    if isinstance(v, (int, float)):
+        return torch.full((), v, dtype=torch.float32, device=device)
+    return torch.as_tensor(v, device=device).to(torch.float32)
+
+
 def _stats(data_symbols, transmissions, bit_errors, n_bits, bits_on_air=None,
            *, device=None) -> TxStats:
-    def f(v):
-        return torch.as_tensor(v, device=device).to(torch.float32)
-
+    f = functools.partial(_f32, device=device)
     return TxStats(f(data_symbols), f(transmissions), f(bit_errors), f(n_bits),
                    bits_on_air=None if bits_on_air is None else f(bits_on_air))
 
@@ -405,7 +420,7 @@ def _batch_stats(c: int, data_symbols, transmissions, bit_errors, n_bits,
     """:class:`TxStats` with ``(c,)`` float32 fields from scalars or
     per-client tensors."""
     def f(v):
-        t = torch.as_tensor(v, device=device).to(torch.float32)
+        t = _f32(v, device)
         return t.expand(c) if t.ndim == 0 else t
 
     return TxStats(f(data_symbols), f(transmissions), f(bit_errors),
@@ -417,6 +432,112 @@ def _row(stats: TxStats, i: int) -> TxStats:
     return TxStats(stats.data_symbols[i], stats.transmissions[i],
                    stats.bit_errors[i], stats.n_bits[i],
                    bits_on_air=stats.bits_on_air[i])
+
+
+def _runs_kernel(cfg: TransportConfig) -> bool:
+    """True where ``cfg`` runs on the CUDA kernels (K0, K1 or K2)."""
+    return cfg.mode in ("naive", "approx") and cfg.use_kernel
+
+
+def _pad_to(cfg: TransportConfig) -> int:
+    """The pad granule of a single-config front-end's packed row: whole
+    tiles where the config runs a kernel, none elsewhere."""
+    return kernel_ops.BLOCK_WORDS if _runs_kernel(cfg) else 1
+
+
+def _transport_kernel_params(cfg: TransportConfig):
+    """(wire_bits, clamp_mask, bits_per_symbol) for a TransportConfig."""
+    wb = _wire_bits(cfg)
+    if cfg.mode != "approx":
+        clamp_mask = 0xFFFFFFFF
+    elif wb == 16:
+        clamp_mask = fc.exponent_clamp_mask16(cfg.clamp_bound)
+    else:
+        clamp_mask = fc.exponent_clamp_mask(cfg.clamp_bound)
+    return wb, clamp_mask, cfg.scheme.bits_per_symbol
+
+
+def _link_params(cfg: TransportConfig, c: int, snr_db, device):
+    """Per-client noise powers and gains ``(C,)`` float32, made on
+    ``device`` (no host copy)."""
+    ch = cfg.channel
+    if snr_db is None:
+        npow = torch.full((c,), ch.noise_power, dtype=torch.float32,
+                          device=device)
+    else:
+        npow = channel_lib.noise_power_for(ch, snr_db, device).contiguous()
+    gains = torch.full((c,), ch.large_scale_gain, dtype=torch.float32,
+                       device=device)
+    return npow, gains
+
+
+def _kernel_path(x: torch.Tensor, n, keys: torch.Tensor,
+                 cfg: TransportConfig, snr_vec, weights=None, *,
+                 num_active=None):
+    """The kernel path's one prologue: K0 for one row ``x (D,)`` and its
+    key ``(2,)``, K1 for rows ``(C, D)`` and keys ``(C, 2)``, K2 with
+    ``weights``. The first ``n`` words of a row (``None``: all) are the
+    payload; a packed row of whole tiles goes to the kernel as it is, any
+    other is padded first. Seeds are ``randint(key_i, (), 0, int32
+    max)``; noise powers and gains are made on the device. Returns
+    ``(x_hat (..., n) float32, or agg (n,) with weights, TxStats)``,
+    scalar stats for K0."""
+    dev, n = x.device, x.shape[-1] if n is None else n
+    c = 1 if x.ndim == 1 else x.shape[0]
+    with spans.span("keys"):
+        seeds = kernel_ops._seed_from_key(keys).to(dev).reshape(c)
+    wb, clamp_mask, k = _transport_kernel_params(cfg)
+    npow, gains = _link_params(cfg, c, snr_vec, dev)
+    if weights is not None:
+        weights = torch.as_tensor(weights, dtype=torch.float32, device=dev)
+    out, errs = kernel_ops.on_tiles(
+        kernel_ops._tiled(x, wb, kernel_ops.BLOCK_WORDS), n, seeds, npow,
+        gains, weights, bits_per_symbol=k, fading=cfg.channel.fading,
+        fade_block=cfg.channel.block_len, clamp_mask=clamp_mask,
+        word_bits=wb, num_active=num_active)
+    counts = (n * (wb // k), 1, errs, n * wb, n * wb)
+    stats = (_stats(*counts, device=dev) if x.ndim == 1
+             else _batch_stats(c, *counts, device=dev))
+    return out.to(torch.float32), stats
+
+
+def pack(leaves, lead: int = 0, pad_to: int = 1):
+    """The wire row of ``leaves``: one float32 buffer ``L + (D_pad,)``,
+    ``L`` the first ``lead`` axes every leaf shares (a client axis, or
+    none).
+
+    Each leaf is read as ``L + (-1,)`` and cast to float32 on its way into
+    the buffer, in order; the ``D_pad - D`` tail, up to the next multiple
+    of ``pad_to``, is zeros. Two launches: the concatenation, written
+    straight into the buffer, and the tail's fill. Returns ``(buf, D)``.
+    """
+    lead = tuple(leaves[0].shape[:lead])
+    parts = [torch.as_tensor(l).reshape(lead + (-1,)) for l in leaves]
+    d = sum(p.shape[-1] for p in parts)
+    buf = torch.empty(lead + (d + (-d) % pad_to,), dtype=torch.float32,
+                      device=parts[0].device)
+    torch.cat(parts, dim=-1, out=buf[..., :d])
+    if buf.shape[-1] > d:
+        buf[..., d:].zero_()
+    return buf, d
+
+
+def unpack(row: torch.Tensor, like, lead: int = 0, *, cast: bool = True):
+    """Per-leaf views of a received row ``(..., >= D)``: leaf ``i`` of
+    ``like`` (packed with :func:`pack` under ``lead``) takes its run of
+    words, shaped ``row.shape[:-1] + like[i].shape[lead:]``. So a
+    ``(C, D)`` batch keeps the client axis, an aggregate ``(D,)`` drops
+    it, and ``(M, D)`` broadcast copies add one. A leaf whose dtype is not
+    float32 is cast back to it unless ``cast`` is false (an aggregate
+    stays float32: it feeds the float32 update)."""
+    out, off = [], 0
+    for leaf in like:
+        shape = tuple(leaf.shape[lead:])
+        size = math.prod(shape)
+        part = row[..., off:off + size].reshape(row.shape[:-1] + shape)
+        out.append(part.to(leaf.dtype) if cast else part)
+        off += size
+    return out
 
 
 def transmit_flat(x, key: torch.Tensor, cfg: TransportConfig, *, snr_db=None,
@@ -433,19 +554,22 @@ def transmit_flat(x, key: torch.Tensor, cfg: TransportConfig, *, snr_db=None,
 
     Returns ``(x_hat (N,) float32, TxStats)``.
     """
-    _check_mode(cfg)
     x = _payload(x, device, 1, "transmit_flat")
-    n = x.shape[0]
-    wb = _wire_bits(cfg)
-    k = cfg.scheme.bits_per_symbol
+    return _transmit_row(x, x.shape[0], key, cfg, snr_db)
+
+
+def _transmit_row(x: torch.Tensor, n: int, key: torch.Tensor,
+                  cfg: TransportConfig, snr_db=None):
+    """:func:`transmit_flat` on a row ``x`` whose first ``n`` words are the
+    payload and the rest zeros (a packed row; wider only on K0's path)."""
+    _check_mode(cfg)
+    wb, k = _wire_bits(cfg), cfg.scheme.bits_per_symbol
     if cfg.mode == "perfect":
         return x, _stats(n * wb // k, 1, 0, n * wb, n * wb, device=x.device)
-    if cfg.mode in ("naive", "approx") and cfg.use_kernel:
-        from repro_torch.kernels import ops as kernel_ops
-
-        return kernel_ops.approx_channel_transmit(x, key, cfg, snr_db=snr_db)
     snr_vec = (None if snr_db is None
                else channel_lib.snr_db_vector(snr_db, 1, x.device))
+    if _runs_kernel(cfg):
+        return _kernel_path(x, n, key, cfg, snr_vec)
     x_hat, stats = _batch_with_keys(x[None], key.reshape(1, 2), cfg, snr_vec)
     return x_hat[0], _row(stats, 0)
 
@@ -457,16 +581,11 @@ def transmit_pytree(tree, key: torch.Tensor, cfg: TransportConfig, *,
     shapes and dtypes restored."""
     leaves, spec = tree_flatten(tree)
     with spans.span("flatten", device=True):
-        flat = torch.cat([torch.as_tensor(l).reshape(-1).to(torch.float32)
-                          for l in leaves])
-    flat_hat, stats = transmit_flat(flat, key, cfg, device=device)
+        row, n = pack(leaves, 0, _pad_to(cfg))
+    row_hat, stats = _transmit_row(_payload(row, device, 1, "transmit_pytree"),
+                                   n, key, cfg)
     with spans.span("unflatten", device=True):
-        out, off = [], 0
-        for leaf in leaves:
-            size = leaf.numel()
-            out.append(flat_hat[off:off + size].reshape(leaf.shape)
-                       .to(leaf.dtype))
-            off += size
+        out = unpack(row_hat, leaves)
     return tree_unflatten(spec, out), stats
 
 
@@ -491,22 +610,23 @@ def _resolve_batch_snr(cfg: TransportConfig, num_clients: int, snr_db,
 
 
 def _batch_with_keys(x: torch.Tensor, keys: torch.Tensor,
-                     cfg: TransportConfig, snr_vec, *, num_active=None):
+                     cfg: TransportConfig, snr_vec, *, n=None,
+                     num_active=None):
     """Single-mode batch over explicit per-client keys ``(C, 2)``, in the
     reference's dispatch order: perfect, the kernel path, the chunked and
-    whole layered PHY, ECRT real or analytic. ``num_active`` masks the
-    tail rows of a padded bucket on the kernel path (no PHY work, zeros);
-    the other paths compute them and the caller discards them."""
-    c, n = x.shape
+    whole layered PHY, ECRT real or analytic. ``n`` is the payload's
+    length where the kernel path gets rows packed wider; ``num_active``
+    masks the tail rows of a padded bucket on the kernel path (no PHY
+    work, zeros); the other paths compute them and the caller discards
+    them."""
+    c = x.shape[0]
+    n = x.shape[1] if n is None else n
     if cfg.mode == "perfect":
         wb, k = _wire_bits(cfg), cfg.scheme.bits_per_symbol
         return x, _batch_stats(c, n * wb // k, 1, 0, n * wb, n * wb,
                                device=x.device)
-    if cfg.mode in ("naive", "approx") and cfg.use_kernel:
-        from repro_torch.kernels import ops as kernel_ops
-
-        return kernel_ops.approx_channel_transmit_batch(
-            x, keys, cfg, snr_vec, num_active=num_active)
+    if _runs_kernel(cfg):
+        return _kernel_path(x, n, keys, cfg, snr_vec, num_active=num_active)
     keys = keys.to(x.device)  # every draw of these paths is per symbol
     if cfg.mode in ("naive", "approx"):
         clamp = cfg.mode == "approx"
@@ -539,13 +659,20 @@ def transmit_batch(x, key: torch.Tensor, cfg: TransportConfig, *,
     Returns ``(x_hat (num_clients, N) float32, TxStats with (num_clients,)
     fields)``.
     """
-    _check_mode(cfg)
-    x = _payload(x, device, 2, "transmit_batch")
-    num_clients = x.shape[0]
-    snr_vec = _resolve_batch_snr(cfg, num_clients, snr_db, x.device)
-    with spans.span("keys"):
-        keys = client_keys(key, num_clients, client_offset)
+    x, snr_vec, keys = _batch_prologue(x, key, cfg, snr_db, client_offset,
+                                       device, "transmit_batch")
     return _batch_with_keys(x, keys, cfg, snr_vec)
+
+
+def _batch_prologue(x, key, cfg, snr_db, client_offset, device, caller):
+    """Shared head of the single-mode batch front-ends: the mode check,
+    the payload on its device, the SNR column and the key schedule."""
+    _check_mode(cfg)
+    x = _payload(x, device, 2, caller)
+    snr_vec = _resolve_batch_snr(cfg, x.shape[0], snr_db, x.device)
+    with spans.span("keys"):
+        keys = client_keys(key, x.shape[0], client_offset)
+    return x, snr_vec, keys
 
 
 def _scan_weighted_sum(rows: torch.Tensor, weights, num_active=None):
@@ -565,16 +692,14 @@ def _scan_weighted_sum(rows: torch.Tensor, weights, num_active=None):
     return agg
 
 
-def _batch_aggregate_with_keys(x, keys, cfg, snr_vec, weights, *,
+def _batch_aggregate_with_keys(x, keys, cfg, snr_vec, weights, *, n=None,
                                num_active=None):
     """Single-mode batch + weighted aggregation over explicit keys: K2 on
     the kernel path, the client-order sum over the batch otherwise. Rows
     at or beyond ``num_active`` add nothing."""
-    if cfg.mode in ("naive", "approx") and cfg.use_kernel:
-        from repro_torch.kernels import ops as kernel_ops
-
-        return kernel_ops.approx_channel_transmit_batch_aggregate(
-            x, keys, cfg, snr_vec, weights, num_active=num_active)
+    if _runs_kernel(cfg):
+        return _kernel_path(x, n, keys, cfg, snr_vec, weights,
+                            num_active=num_active)
     x_hat, stats = _batch_with_keys(x, keys, cfg, snr_vec)
     return _scan_weighted_sum(x_hat, weights, num_active), stats
 
@@ -591,12 +716,8 @@ def transmit_batch_aggregate(x, key: torch.Tensor, cfg: TransportConfig,
 
     Returns ``(agg (N,) float32, TxStats with (num_clients,) fields)``.
     """
-    _check_mode(cfg)
-    x = _payload(x, device, 2, "transmit_batch_aggregate")
-    num_clients = x.shape[0]
-    snr_vec = _resolve_batch_snr(cfg, num_clients, snr_db, x.device)
-    with spans.span("keys"):
-        keys = client_keys(key, num_clients, client_offset)
+    x, snr_vec, keys = _batch_prologue(x, key, cfg, snr_db, client_offset,
+                                       device, "transmit_batch_aggregate")
     return _batch_aggregate_with_keys(x, keys, cfg, snr_vec, weights)
 
 
@@ -893,41 +1014,6 @@ def tree_unflatten(spec, leaves: list):
     return [out[i] for i in range(len(children))] if kind is list else out
 
 
-def _flatten_client_tree(tree):
-    """Stack a ``(num_clients, ...)``-leaved tree into one ``(C, D)``
-    float32 matrix, in sorted-key order."""
-    leaves, spec = tree_flatten(tree)
-    num_clients = leaves[0].shape[0]
-    flat = torch.cat([l.reshape(num_clients, -1).to(torch.float32)
-                      for l in leaves], dim=1)
-    return flat, (leaves, spec)
-
-
-def _unflatten_client_tree(flat_hat: torch.Tensor, tree_spec):
-    """``(C, D)`` rows back to the client tree, shapes and dtypes restored."""
-    leaves, spec = tree_spec
-    out, off = [], 0
-    for leaf in leaves:
-        size = leaf[0].numel()
-        out.append(flat_hat[:, off:off + size].reshape(leaf.shape)
-                   .to(leaf.dtype))
-        off += size
-    return tree_unflatten(spec, out)
-
-
-def _unflatten_aggregate_tree(agg: torch.Tensor, tree_spec):
-    """A ``(D,)`` aggregate back to the tree with the client axis reduced
-    away (float32 whatever the leaf dtype, since it feeds the f32
-    update)."""
-    leaves, spec = tree_spec
-    out, off = [], 0
-    for leaf in leaves:
-        size = leaf[0].numel()
-        out.append(agg[off:off + size].reshape(leaf.shape[1:]))
-        off += size
-    return tree_unflatten(spec, out)
-
-
 def transmit_pytree_batch(tree, key: torch.Tensor, cfg: TransportConfig, *,
                           snr_db=None, device=None):
     """Batched pytree uplink: every leaf has a leading client dim; each
@@ -935,10 +1021,12 @@ def transmit_pytree_batch(tree, key: torch.Tensor, cfg: TransportConfig, *,
 
     Returns ``(tree_hat, stats)`` with shapes and dtypes restored.
     """
-    flat, tree_spec = _flatten_client_tree(tree)
-    flat_hat, stats = transmit_batch(flat, key, cfg, snr_db=snr_db,
-                                     device=device)
-    return _unflatten_client_tree(flat_hat, tree_spec), stats
+    leaves, spec = tree_flatten(tree)
+    row, n = pack(leaves, 1, _pad_to(cfg))
+    x, snr_vec, keys = _batch_prologue(row, key, cfg, snr_db, 0, device,
+                                       "transmit_pytree_batch")
+    x_hat, stats = _batch_with_keys(x, keys, cfg, snr_vec, n=n)
+    return tree_unflatten(spec, unpack(x_hat, leaves, 1)), stats
 
 
 def transmit_pytree_batch_aggregate(tree, key: torch.Tensor,
@@ -947,10 +1035,13 @@ def transmit_pytree_batch_aggregate(tree, key: torch.Tensor,
     """Pytree front-end of :func:`transmit_batch_aggregate`: the aggregate
     comes back in the tree's structure with the client axis reduced
     away."""
-    flat, tree_spec = _flatten_client_tree(tree)
-    agg, stats = transmit_batch_aggregate(flat, key, cfg, weights,
-                                          snr_db=snr_db, device=device)
-    return _unflatten_aggregate_tree(agg, tree_spec), stats
+    leaves, spec = tree_flatten(tree)
+    row, n = pack(leaves, 1, _pad_to(cfg))
+    x, snr_vec, keys = _batch_prologue(row, key, cfg, snr_db, 0, device,
+                                       "transmit_pytree_batch_aggregate")
+    agg, stats = _batch_aggregate_with_keys(x, keys, cfg, snr_vec, weights,
+                                            n=n)
+    return tree_unflatten(spec, unpack(agg, leaves, 1, cast=False)), stats
 
 
 def transmit_pytree_batch_adaptive(tree, key: torch.Tensor, cfgs, mode_idx,
@@ -958,11 +1049,12 @@ def transmit_pytree_batch_adaptive(tree, key: torch.Tensor, cfgs, mode_idx,
                                    device=None):
     """Pytree front-end of :func:`transmit_batch_adaptive`: the entry point
     the scenario-driven FL rounds feed their gradients through."""
-    flat, tree_spec = _flatten_client_tree(tree)
-    flat_hat, stats = transmit_batch_adaptive(
-        flat, key, cfgs, mode_idx, snr_db=snr_db, dispatch=dispatch,
+    leaves, spec = tree_flatten(tree)
+    row, _ = pack(leaves, 1)
+    x_hat, stats = transmit_batch_adaptive(
+        row, key, cfgs, mode_idx, snr_db=snr_db, dispatch=dispatch,
         device=device)
-    return _unflatten_client_tree(flat_hat, tree_spec), stats
+    return tree_unflatten(spec, unpack(x_hat, leaves, 1)), stats
 
 
 def transmit_pytree_batch_adaptive_aggregate(tree, key: torch.Tensor, cfgs,
@@ -970,10 +1062,11 @@ def transmit_pytree_batch_adaptive_aggregate(tree, key: torch.Tensor, cfgs,
                                              snr_db=None, device=None):
     """Pytree front-end of :func:`transmit_batch_adaptive_aggregate` (the
     scenario-driven fused rounds; globally normalized weights)."""
-    flat, tree_spec = _flatten_client_tree(tree)
+    leaves, spec = tree_flatten(tree)
+    row, _ = pack(leaves, 1)
     agg, stats = transmit_batch_adaptive_aggregate(
-        flat, key, cfgs, mode_idx, weights, snr_db=snr_db, device=device)
-    return _unflatten_aggregate_tree(agg, tree_spec), stats
+        row, key, cfgs, mode_idx, weights, snr_db=snr_db, device=device)
+    return tree_unflatten(spec, unpack(agg, leaves, 1, cast=False)), stats
 
 
 def _broadcast_payload(x, num_clients: int, device) -> torch.Tensor:
@@ -1013,11 +1106,9 @@ def transmit_broadcast(x, key: torch.Tensor, cfg: TransportConfig,
     (num_clients,) fields)``; ``latency.broadcast_airtime`` prices the
     single transmission from them.
     """
-    _check_mode(cfg)
-    xb = _broadcast_payload(x, num_clients, device)
-    snr_vec = _resolve_batch_snr(cfg, num_clients, snr_db, xb.device)
-    with spans.span("keys"):
-        keys = client_keys(key, num_clients, DOWNLINK_KEY_LANE)
+    xb, snr_vec, keys = _batch_prologue(
+        _broadcast_payload(x, num_clients, device), key, cfg, snr_db,
+        DOWNLINK_KEY_LANE, device, "transmit_broadcast")
     return _batch_with_keys(xb, keys, cfg, snr_vec)
 
 
@@ -1036,49 +1127,30 @@ def transmit_broadcast_adaptive(x, key: torch.Tensor, cfgs, mode_idx, *,
         client_offset=DOWNLINK_KEY_LANE, dispatch=dispatch, device=device)
 
 
-def _flatten_global_tree(tree):
-    """A client-dim-free tree as one ``(D,)`` float32 payload (sorted-key
-    order) and the spec to rebuild per-client copies."""
-    leaves, spec = tree_flatten(tree)
-    flat = torch.cat([l.reshape(-1).to(torch.float32) for l in leaves])
-    return flat, (leaves, spec)
-
-
-def _unflatten_broadcast_tree(flat_hat: torch.Tensor, tree_spec):
-    """``(num_clients, D)`` received copies back to a tree whose leaves
-    grew a leading client dim, dtypes restored."""
-    leaves, spec = tree_spec
-    num_clients = flat_hat.shape[0]
-    out, off = [], 0
-    for leaf in leaves:
-        size = leaf.numel()
-        out.append(flat_hat[:, off:off + size]
-                   .reshape((num_clients,) + tuple(leaf.shape))
-                   .to(leaf.dtype))
-        off += size
-    return tree_unflatten(spec, out)
-
-
 def transmit_pytree_broadcast(tree, key: torch.Tensor, cfg: TransportConfig,
                               num_clients: int, *, snr_db=None, device=None):
     """Broadcast a whole tree (the global model) to every client: leaves
     come back with a leading ``(num_clients,)`` dim, client ``i``'s copy
     at index ``i``; stats are per client."""
-    flat, tree_spec = _flatten_global_tree(tree)
-    flat_hat, stats = transmit_broadcast(flat, key, cfg, num_clients,
-                                         snr_db=snr_db, device=device)
-    return _unflatten_broadcast_tree(flat_hat, tree_spec), stats
+    leaves, spec = tree_flatten(tree)
+    row, n = pack(leaves, 0, _pad_to(cfg))
+    xb, snr_vec, keys = _batch_prologue(
+        _broadcast_payload(row, num_clients, device), key, cfg, snr_db,
+        DOWNLINK_KEY_LANE, device, "transmit_pytree_broadcast")
+    x_hat, stats = _batch_with_keys(xb, keys, cfg, snr_vec, n=n)
+    return tree_unflatten(spec, unpack(x_hat, leaves)), stats
 
 
 def transmit_pytree_broadcast_adaptive(tree, key: torch.Tensor, cfgs,
                                        mode_idx, *, snr_db=None,
                                        dispatch: str = "auto", device=None):
     """Pytree front-end of :func:`transmit_broadcast_adaptive`."""
-    flat, tree_spec = _flatten_global_tree(tree)
-    flat_hat, stats = transmit_broadcast_adaptive(
-        flat, key, cfgs, mode_idx, snr_db=snr_db, dispatch=dispatch,
+    leaves, spec = tree_flatten(tree)
+    row, _ = pack(leaves)
+    x_hat, stats = transmit_broadcast_adaptive(
+        row, key, cfgs, mode_idx, snr_db=snr_db, dispatch=dispatch,
         device=device)
-    return _unflatten_broadcast_tree(flat_hat, tree_spec), stats
+    return tree_unflatten(spec, unpack(x_hat, leaves)), stats
 
 
 def transmit_sparse(values, indices, dim: int, key: torch.Tensor,

@@ -885,8 +885,9 @@ class RoundEngine:
         ``(hat, None, stats)``; updates the EF residual (absent clients'
         rows, ``member`` 0, keep theirs)."""
         comp, algo, dev = self.compression, self.algo, self.device
-        flat, spec = transport_lib._flatten_client_tree(payload)
-        M, D = flat.shape
+        leaves, spec = transport_lib.tree_flatten(payload)
+        flat, D = transport_lib.pack(leaves, 1)
+        M = flat.shape[0]
         old = self._ef_residual
         with spans.span("keys"):
             keys = transport_lib.client_keys(key, M)
@@ -915,7 +916,8 @@ class RoundEngine:
         if member is not None:
             new = torch.where(member.to(dev)[:, None] > 0, new, old)
         self._ef_residual = new
-        hat = transport_lib._unflatten_client_tree(hat_flat, spec)
+        hat = transport_lib.tree_unflatten(
+            spec, transport_lib.unpack(hat_flat, leaves, 1))
         return hat, None, stats
 
     def _sparse_bucketed_uplink(self, acc, keys, rnd, cfgs):

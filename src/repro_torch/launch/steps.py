@@ -25,8 +25,8 @@ dense dispatch. Inside a :func:`repro_torch.obs.spans.collect`
 scope the approx step times its spans (the tree is in
 ``repro_torch/obs/spans.py``): the root ``step`` (id: the step's call
 number) and its parts ``grad`` (forward and backward), ``uplink`` (the
-wire casts and ``approx_allreduce``; its parts ``flatten``, ``keys``,
-``pad``, ``kernel`` (K0 alone) and ``unflatten``) and ``apply``.
+wire cast and ``approx_allreduce``; its parts ``flatten``, ``keys``,
+``kernel`` (K0 alone) and ``unflatten``) and ``apply``.
 """
 
 from __future__ import annotations
@@ -169,15 +169,14 @@ def corrupt_per_shard(grads, key, transport_cfg, mesh):
     specs, _ = transport_lib.tree_flatten(
         sh.tree_specs(grads, None, mesh, fsdp=True))
     mine = [l[_block(l.shape, s, mesh, rank)] for l, s in zip(leaves, specs)]
-    flat = torch.cat([b.reshape(-1).to(torch.float32) for b in mine])
+    row, d = transport_lib.pack(mine, 0, transport_lib._pad_to(transport_cfg))
     # per-shard key, bounded by the mesh size: lint: ignore[keylane]
     shard_key = prng.fold_in(key, rank)
-    flat_hat, _ = transport_lib.transmit_flat(flat, shard_key, transport_cfg,
-                                              device=dev)
-    out, off = [], 0
-    for leaf, s, b in zip(leaves, specs, mine):
-        part = flat_hat[off:off + b.numel()].reshape(b.shape).to(leaf.dtype)
-        off += b.numel()
+    row_hat, _ = transport_lib._transmit_row(row, d, shard_key,
+                                             transport_cfg)
+    out = []
+    for leaf, s, part in zip(leaves, specs,
+                             transport_lib.unpack(row_hat, mine)):
         parts = [torch.empty_like(part) for _ in range(n)]
         dist.all_gather(parts, part.contiguous(), group=group)
         full = torch.empty_like(leaf)
@@ -193,8 +192,8 @@ def make_train_step_approx(cfg, opt, transport_cfg, mesh=None):
     ``step(params, opt_state, batch, key) -> (params, opt_state, loss,
     stats)``: value and grad on this rank's rows, the gradient cast to the
     wire dtype, :func:`aggregation.approx_allreduce` over the data group
-    (rank ``r`` keyed ``fold_in(key, r)``), back to float32, then
-    ``opt.update``. The loss and the stats are averaged over the group.
+    (rank ``r`` keyed ``fold_in(key, r)``; it returns float32 leaves),
+    then ``opt.update``. The loss and the stats are averaged over the group.
     """
     wire = (torch.bfloat16 if transport_cfg.wire_dtype == "bfloat16"
             else torch.float32)
@@ -217,9 +216,6 @@ def make_train_step_approx(cfg, opt, transport_cfg, mesh=None):
                 grads = transport_lib.tree_map(lambda g: g.to(wire), grads)
             grads, stats = agg_lib.approx_allreduce(grads, key,
                                                     transport_cfg, group)
-            with spans.span("unflatten", device=True):
-                grads = transport_lib.tree_map(
-                    lambda g: g.to(torch.float32), grads)
         loss = _pmean(loss, group)
         for f in ("data_symbols", "transmissions", "bit_errors", "n_bits",
                   "bits_on_air"):

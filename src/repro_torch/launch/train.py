@@ -20,7 +20,7 @@ each step splits the key once. ``approx``/``naive`` run
 step with per-shard corruption. Each printed step line splits its time
 into the approx step's spans (``repro_torch.obs.spans``): ``grad``
 (forward and backward), ``uplink`` with its parts in brackets
-(``flatten``, ``keys``, ``pad``, ``kernel``, ``unflatten``), ``apply``
+(``flatten``, ``keys``, ``kernel``, ``unflatten``), ``apply``
 and the whole ``step``.
 """
 
@@ -45,7 +45,7 @@ from repro_torch.optim.sgd import sgd as make_sgd
 
 __all__ = ["main", "parse_args"]
 
-UPLINK_PARTS = ("flatten", "keys", "pad", "kernel", "unflatten")
+UPLINK_PARTS = ("flatten", "keys", "kernel", "unflatten")
 
 
 def span_parts(phase_s: dict) -> str:

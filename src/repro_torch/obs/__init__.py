@@ -27,7 +27,7 @@ Counterpart of ``repro.obs``, module for module:
   ``sample``, ``link``, ``downlink``, ``gradients``, ``uplink`` (>
   ``keys``, ``kernel``, ``codec``, ``channel``, ``demod``, ``mean``),
   ``apply``, ``telemetry``, ``eval``; the LLM approx step is ``step`` >
-  ``grad``, ``uplink`` (> ``flatten``, ``keys``, ``pad``, ``kernel``,
+  ``grad``, ``uplink`` (> ``flatten``, ``keys``, ``kernel``,
   ``unflatten``), ``apply``. Beside them, ``FLResult.counters``: each
   round's K0 / K1 / K2 launches.
 

@@ -50,12 +50,12 @@ The span tree (``FLResult.phase_s`` keys in brackets)::
 
     step (id: call)                        launch/steps.py, approx step
       grad              dev    forward and backward
-      uplink            dev    wire casts + approx_allreduce
-        flatten         dev    wire cast, transmit_pytree's concatenation
+      uplink            dev    wire cast + approx_allreduce
+        flatten         dev    wire cast, transmit_pytree's pack (the
+                               row padded to whole tiles as it is built)
         keys            host   fold_in, kernel seed
-        pad             dev    _tiled
         kernel          dev    K0
-        unflatten       dev    padding errors, cast and split back
+        unflatten       dev    unpack: per-leaf views of the received row
       apply             dev    opt.update
 
     grad's parts in an MLA moe config (``models/transformer.py``; each

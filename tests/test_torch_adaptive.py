@@ -101,10 +101,10 @@ def _margins(x, key, cfgs, modes, snr):
         if cfg.use_kernel:
             n = x.shape[1]
             xp = torch.nn.functional.pad(xs, (0, (-n) % 1024))
-            wb, mask, k = TO._transport_kernel_params(cfg)
+            wb, mask, k = TT._transport_kernel_params(cfg)
             if wb == 16:
                 xp = xp.to(torch.bfloat16)
-            npow, gains = TO._link_params(cfg, idx.size, ss,
+            npow, gains = TT._link_params(cfg, idx.size, ss,
                                           torch.device("cpu"))
             _, _, edges = TR.approx_channel_batch_ref(
                 xp, TO._seed_from_key(ks), npow, gains, bits_per_symbol=k,

@@ -390,8 +390,8 @@ def _slot_margins(vals, keys, cfg, snr):
     if cfg.use_kernel:
         n = x.shape[1]
         xp = torch.nn.functional.pad(x, (0, (-n) % 1024))
-        wb, mask, k = TO._transport_kernel_params(cfg)
-        npow, gains = TO._link_params(cfg, x.shape[0], s, torch.device("cpu"))
+        wb, mask, k = TT._transport_kernel_params(cfg)
+        npow, gains = TT._link_params(cfg, x.shape[0], s, torch.device("cpu"))
         _, _, edges = TR.approx_channel_batch_ref(
             xp, TO._seed_from_key(keys), npow, gains, bits_per_symbol=k,
             fading=cfg.channel.fading, fade_block=cfg.channel.block_len,

@@ -499,8 +499,8 @@ def test_adaptive_bucketed_card_vs_cpu(cuda_device, fused):
             continue
         n = x.shape[1]
         xp = torch.nn.functional.pad(x[idx], (0, (-n) % 1024))
-        wb, mask, k = TO._transport_kernel_params(cfg)
-        npow, gains = TO._link_params(cfg, idx.numel(), snr[idx],
+        wb, mask, k = TT._transport_kernel_params(cfg)
+        npow, gains = TT._link_params(cfg, idx.numel(), snr[idx],
                                       torch.device("cpu"))
         _, _, e = TR.approx_channel_batch_ref(
             xp, TO._seed_from_key(keys[idx]), npow, gains, bits_per_symbol=k,
@@ -591,7 +591,7 @@ def test_broadcast_k1_matches_plain(cuda_device, n):
     assert TAC.launch_counts() == {"k0": 0, "k1": 1, "k2": 0}
     keys = TT.client_keys(key, c, TT.DOWNLINK_KEY_LANE)
     seeds = TO._seed_from_key(keys).to(cuda_device)
-    npow, gains = TO._link_params(cfg, c, None, cuda_device)
+    npow, gains = TT._link_params(cfg, c, None, cuda_device)
     tile = torch.nn.functional.pad(x.expand(c, n), (0, (-n) % 1024))
     xp, ep, edges = TR.approx_channel_batch_ref(
         tile, seeds, npow, gains, with_edges=True)
@@ -664,7 +664,7 @@ def test_sparse_value_leg_k1_matches_plain(cuda_device, k):
     keys = TT.client_keys(key, c)
     xg, sg = TT._batch_with_keys(vals, keys, cfg, None)
     seeds = TO._seed_from_key(keys).to(cuda_device)
-    npow, gains = TO._link_params(cfg, c, None, cuda_device)
+    npow, gains = TT._link_params(cfg, c, None, cuda_device)
     tile = torch.nn.functional.pad(vals, (0, (-k) % 1024))
     xp, ep = TR.approx_channel_batch_ref(tile, seeds, npow, gains)
     assert torch.equal(_bits(xg), _bits(xp[:, :k]))
@@ -1030,6 +1030,53 @@ def test_k0_long_padded_row_through_ops(cuda_device, snr_db):
     assert torch.equal(_bits(got), _bits(want[:n]))
     assert int(errs) == int(werrs) - int(TO._padding_errors(
         want[None, n:], 32)[0])
+
+
+@pytest.mark.cuda
+def test_transmit_pytree_k0_holds_two_rows(cuda_device):
+    """``transmit_pytree`` on K0 packs its tree once, straight into whole
+    tiles: above the tree's own memory the peak holds the packed row and
+    K0's output (64 MiB of slack), not a concatenation and a padded copy
+    of it besides. A tree of about 2**27 words, not whole tiles; its
+    words, errors and stats equal ``ops.approx_channel`` on the
+    concatenated row."""
+    from repro_torch.core import prng as P
+
+    g = torch.Generator(device=cuda_device).manual_seed(33)
+    tree = {"b": torch.randn((4096, 16383), generator=g, device=cuda_device),
+            "a": torch.randn((8192, 8192), generator=g, device=cuda_device),
+            "c": [torch.randn((1000,), generator=g, device=cuda_device)]}
+    cfg = TT.TransportConfig(mode="approx", use_kernel=True,
+                             channel=TCH.ChannelConfig(snr_db=10.0))
+    key = P.PRNGKey(7, device=cuda_device)
+    leaves, _ = TT.tree_flatten(tree)
+    n = sum(l.numel() for l in leaves)
+    assert n % 1024 and abs(n - 2**27) < 2**13
+    row_bytes = 4 * (n + (-n) % 1024)
+    torch.cuda.synchronize(cuda_device)
+    base = torch.cuda.memory_allocated(cuda_device)
+    torch.cuda.reset_peak_memory_stats(cuda_device)
+    before = TAC.launch_counts()
+    got, st = TT.transmit_pytree(tree, key, cfg, device=cuda_device)
+    torch.cuda.synchronize(cuda_device)
+    rise = torch.cuda.max_memory_allocated(cuda_device) - base
+    assert TAC.launch_counts() == dict(before, k0=before["k0"] + 1)
+    assert rise <= 2 * row_bytes + 64 * 2**20, (rise, row_bytes)
+    wb, mask, k = TT._transport_kernel_params(cfg)
+    want, werrs = TO.approx_channel(
+        torch.cat([l.reshape(-1) for l in leaves]),
+        TO._seed_from_key(key), cfg.channel.noise_power,
+        cfg.channel.large_scale_gain, bits_per_symbol=k, clamp_mask=mask)
+    off = 0
+    for leaf in TT.tree_flatten(got)[0]:
+        assert leaf.dtype == torch.float32
+        assert torch.equal(_bits(leaf.reshape(-1)),
+                           _bits(want[off:off + leaf.numel()]))
+        off += leaf.numel()
+    assert off == n and int(werrs) > 0
+    assert float(st.bit_errors) == float(werrs.to(torch.float32))
+    assert float(st.n_bits) == np.float32(n * wb)
+    assert float(st.data_symbols) == np.float32(n * (wb // k))
 
 
 @pytest.mark.cuda

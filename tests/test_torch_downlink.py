@@ -115,8 +115,8 @@ def _kernel_edges(x, keys, cfg, snr):
     tiled broadcast, ``(M, N)``."""
     m, n = x.shape
     xp = torch.nn.functional.pad(x, (0, (-n) % 1024))
-    wb, mask, k = TO._transport_kernel_params(cfg)
-    npow, gains = TO._link_params(cfg, m, snr, torch.device("cpu"))
+    wb, mask, k = TT._transport_kernel_params(cfg)
+    npow, gains = TT._link_params(cfg, m, snr, torch.device("cpu"))
     _, _, edges = TR.approx_channel_batch_ref(
         xp, TO._seed_from_key(keys), npow, gains, bits_per_symbol=k,
         fading=cfg.channel.fading, fade_block=cfg.channel.block_len,
@@ -344,8 +344,8 @@ def test_pytree_broadcast_front_ends():
         params, P.PRNGKey(1), TT.TransportConfig(mode="perfect"), 3,
         device="cpu")
     assert list(out) == sorted(params)  # jax.tree_util's dict order
-    flat, _ = TT._flatten_global_tree(params)
     leaves, _ = TT.tree_flatten(params)
+    flat, _ = TT.pack(leaves)
     assert flat.shape == (sum(l.numel() for l in leaves),)
     assert torch.equal(flat[:6], params["a_half"].float())  # sorted first
     for k, v in params.items():

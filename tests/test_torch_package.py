@@ -93,6 +93,32 @@ def test_port_covers_its_modules():
     assert (ROOT / "src/repro_torch/kernels/csrc/approx_channel.cu").exists()
 
 
+def _imported_modules(source):
+    """Every module an ``import`` names, at any depth of the AST, with
+    ``from a import b`` read as ``a.b``."""
+    out = []
+    for node in ast.walk(ast.parse(source)):
+        if isinstance(node, ast.Import):
+            out += [alias.name for alias in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            out += [f"{node.module}.{alias.name}" for alias in node.names]
+    return out
+
+
+def test_kernel_wrappers_import_no_transport():
+    """The arrows point one way, transport -> ops -> approx_channel ->
+    ref: ``kernels/ops.py`` imports nothing of the transport module, at
+    module level or inside a function."""
+    planted = _imported_modules(
+        "def f():\n    from repro_torch.core import transport as t\n")
+    assert planted == ["repro_torch.core.transport"]
+    found = _imported_modules(
+        (ROOT / "src/repro_torch/kernels/ops.py").read_text())
+    assert "repro_torch.kernels.approx_channel" in found
+    assert not [m for m in found
+                if m.startswith("repro_torch.core.transport")], found
+
+
 def _world():
     rng = np.random.default_rng(0)
     cx = rng.uniform(0, 1, (2, 8, 28, 28)).astype(np.float32)

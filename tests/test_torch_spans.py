@@ -326,7 +326,7 @@ def test_llm_step_spans(use_kernel):
                                           P.PRNGKey(i))
             float(loss)
         want = {"step", "grad", "uplink", "flatten", "keys", "unflatten",
-                "apply"} | ({"pad", "kernel"} if use_kernel
+                "apply"} | ({"kernel"} if use_kernel
                             else {"codec", "channel", "demod"})
         assert set(parts) == want
         root = rec.spans[0]

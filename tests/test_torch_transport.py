@@ -64,11 +64,11 @@ def _edges(x, key, cfg, snr_db=None):
     c, n = x.shape
     bw = 1024
     xp = torch.nn.functional.pad(torch.from_numpy(x), (0, (-n) % bw))
-    wb, mask, k = TO._transport_kernel_params(cfg)
+    wb, mask, k = TT._transport_kernel_params(cfg)
     if wb == 16:
         xp = xp.to(torch.bfloat16)
     seeds = TO._seed_from_key(TT.client_keys(key, c))
-    npow, gains = TO._link_params(cfg, c, snr_db, torch.device("cpu"))
+    npow, gains = TT._link_params(cfg, c, snr_db, torch.device("cpu"))
     _, _, edges = TR.approx_channel_batch_ref(
         xp, seeds, npow, gains, bits_per_symbol=k, fading=cfg.channel.fading,
         fade_block=cfg.channel.block_len, clamp_mask=mask, word_bits=wb,
@@ -212,11 +212,84 @@ def _tree(seed):
 
 def test_pytree_flatten_order_is_sorted_keys():
     tree = _tree(0)
-    flat, _ = TT._flatten_client_tree(
+    leaves, _ = TT.tree_flatten(
         {k: torch.from_numpy(v) for k, v in tree.items()})
+    flat, _ = TT.pack(leaves, 1)
     ref, _ = JT._flatten_client_tree({k: jnp.asarray(v)
                                       for k, v in tree.items()})
     np.testing.assert_array_equal(np.asarray(ref), flat.numpy())
+
+
+def _wire_tree(kind, dtypes, lead, whole, seed=0):
+    """A tree of ``lead``-prefixed leaves: ``dict`` (unsorted keys) or
+    ``list`` (the hybrid family's ``tail``: a list of layer dicts); the
+    leaves' dtypes cycle through ``dtypes``. ``whole`` sizes the row to
+    exactly two tiles."""
+    g = torch.Generator().manual_seed(seed)
+    shapes = [(37, 11), (5,), (), (3, 4)]
+    shapes.append((2048 - sum(int(np.prod(s)) for s in shapes),) if whole
+                  else (700,))
+    leaves = [torch.randn(lead + s, generator=g).to(dtypes[i % len(dtypes)])
+              for i, s in enumerate(shapes)]
+    if kind == "dict":
+        return dict(zip(["w", "b_half", "s", "a", "z"], leaves))
+    return {"embed": leaves[0],
+            "tail": [{"wi": leaves[1], "norm": leaves[2]},
+                     {"wi": leaves[3], "norm": leaves[4]}]}
+
+
+@pytest.mark.parametrize("whole", [False, True], ids=["ragged", "whole"])
+@pytest.mark.parametrize("pad_to", [1, 1024])
+@pytest.mark.parametrize("kind", ["dict", "list"])
+@pytest.mark.parametrize("dtypes", [(torch.float32,), (torch.bfloat16,),
+                                    (torch.float32, torch.bfloat16)],
+                         ids=["f32", "bf16", "mixed"])
+@pytest.mark.parametrize("lead", ["none", "clients", "shard"])
+def test_pack_unpack_match_cat_and_pad(lead, dtypes, kind, pad_to, whole):
+    """``pack`` and ``unpack`` against the concatenation, ``F.pad`` and
+    split loops they replace, bit for bit: one tree (lead 0), a client
+    tree (lead 1), and shard blocks (strided views of the leaves, as
+    ``corrupt_per_shard`` sends them)."""
+    tree = _wire_tree(kind, dtypes, (3,) if lead == "clients" else (6, 5)
+                      if lead == "shard" else (), whole)
+    leaves, _ = TT.tree_flatten(tree)
+    if lead == "shard":
+        leaves = [l[2:5, 1:4] for l in leaves]
+    k = 1 if lead == "clients" else 0
+    pre = tuple(leaves[0].shape[:k])
+    flat = torch.cat([l.reshape(pre + (-1,)).to(torch.float32)
+                      for l in leaves], dim=-1)
+    d = flat.shape[-1]
+    want = torch.nn.functional.pad(flat, (0, (-d) % pad_to))
+    row, n = TT.pack(leaves, k, pad_to)
+    assert n == d and row.dtype == torch.float32 and row.is_contiguous()
+    assert row.shape == want.shape and torch.equal(row, want)
+    assert (row.shape[-1] == d) == (pad_to == 1 or whole)
+
+    def split(r, dims, cast):
+        out, off = [], 0
+        for l in leaves:
+            tail = tuple(l.shape[k:])
+            size = int(np.prod(tail))
+            part = r[..., off:off + size].reshape(r.shape[:-1] + tail)
+            out.append(part.to(l.dtype) if cast else part)
+            off += size
+        return out
+
+    received = row * 3 - 1  # any row the link could hand back
+    views = [(received, True)]
+    if lead == "clients":  # the aggregate drops the client axis
+        views.append((received.sum(0), False))
+    else:  # broadcast copies gain one
+        views.append((received.expand((4,) + received.shape), True))
+    for r, cast in views:
+        got = TT.unpack(r, leaves, k, cast=cast)
+        for g, w, l in zip(got, split(r, k, cast), leaves):
+            assert g.shape == w.shape and g.dtype == w.dtype
+            assert torch.equal(g, w)
+            if g.dtype == torch.float32:  # a view of the row, not a copy
+                assert g.untyped_storage().data_ptr() == \
+                    r.untyped_storage().data_ptr()
 
 
 def test_transmit_pytree_batch_vs_reference():
