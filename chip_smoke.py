@@ -13,8 +13,8 @@ moe, vlm, hybrid, ssm and audio families at phi3.5-moe's, pixtral-12b's,
 recurrentgemma-2b's, falcon-mamba-7b's and whisper-large-v3's published
 widths, recurrentgemma-2b at full depth through K0 on a row past 2**31 -
 1 words, the optimizers, and the meta-device dry run — and
-holds both
-CUDA kernels against their plain PyTorch versions. Phases, each of which
+holds its CUDA kernels against their plain PyTorch versions: K0, K1 and
+K2 of the approximate channel, and the layered PHY's channel stage. Phases, each of which
 fails the run
 (non-zero exit) when it fails:
 
@@ -24,7 +24,10 @@ fails the run
    they allow, per family K0 / K1 / K2; a build reused from an earlier
    run in the same checkout reports the log saved with it), and the SASS
    of one symbol of the main-path instances (k=2, rayleigh, f32 wire) of
-   all three counted by class with ``cuobjdump`` (``sass_symbol_loop``).
+   all three counted by class with ``cuobjdump`` (``sass_symbol_loop``);
+   then the channel stage's ``csrc/phy_channel.cu`` the same way (its
+   three fading instances' registers and spills, and one QPSK Rayleigh
+   symbol's hot path: ``sass_stage_symbol_loop``).
 3. K1 against its plain version on the card: k in {2,4,8} x fading in
    {rayleigh, awgn, block_rayleigh} x wire in {f32, bf16} at C=8,
    N=16,384; C=37 (across the kernels' client chunk of 32, no multiple
@@ -41,11 +44,15 @@ fails the run
    100 non-iid clients, QPSK approx uplink at 10 dB on the kernel path,
    3 layered rounds (K1) and 3 fused rounds (K2). Launch counters are set
    to 0 just before each path and read just after; each kernel must have
-   launched once per round. Each round's time is split into gradients,
+   launched once per round, and the channel stage's counter
+   (``channel_stage.launches``) must read 0, since the kernel path skips
+   the layered PHY. Each round's time is split into gradients,
    uplink (with its key-schedule and kernel parts), apply and eval. A
    4-client world run on the GPU and on the CPU checks the result against
    the CPU plain path.
-5c. The layered PHY and the ECRT baseline, which launch no kernel:
+5c. The layered PHY and the ECRT baseline, which launch none of K0, K1
+   and K2 (on the card the layered PHY's channel stage is one launch of
+   its own kernel):
    (a) QPSK BER over Rayleigh at 10 and 20 dB (2^20 symbols) within 5
    binomial standard deviations of the closed form; (b) Table I on 16-QAM,
    MSB error rate below the LSB's; (c) layered ``transmit_batch`` on the
@@ -56,11 +63,15 @@ fails the run
    ``calibrate_ecrt`` at 10 and 20 dB (48 codewords, ``max_tx`` 6) timed
    on the card beside the CPU; (e) the paper's Fig. 3 arms at full width
    (100 clients, paper CNN, QPSK 10 dB, 3 rounds each of approx and naive
-   on the layered PHY and ECRT resolved by the engine): launch counters
-   0, per-round phase times, peak memory, airtime per client against
+   on the layered PHY and ECRT resolved by the engine): K0-K2 counters
+   0, the channel stage's counter 1 a round on the card for approx and
+   naive (0 on the CPU, and for ECRT, which the engine prices
+   analytically), per-round phase times, peak memory, airtime per client
+   against
    ``round_airtime``'s formula and the ECRT/approx ratio against
    ``(2 E 349,440 1.05 / 13e6 + 200e-6 E) / (349,440 / 13e6 + 200e-6)``,
-   and the layered uplink alone beside its four normals per symbol.
+   and the layered uplink alone beside its channel stage alone (one
+   ``_through_channel`` call at the round's shape).
 5d. Link adaptation at full width (the same world and CNN): the
    ``vehicular`` scenario with E[tx] calibrated, over an approx QPSK
    ``use_kernel`` base at 10 dB, 3 rounds each of bucketed layered,
@@ -284,10 +295,18 @@ fails the run
    (one median per k, capacity and ``num_active``) beside their bounds;
    then K1 at phase 5f's sparse value-leg shapes (C = 100, k = 437, and
    round 0's ``iot-lowrate`` uncoded buckets), one padded tile a client,
-   beside the bound of the ``k`` words.
+   beside the bound of the ``k`` words. Last, the channel stage at the
+   ``cnn-approx-layered`` cell's shape (C=100 rows of 21,840 words x 16
+   QPSK symbols, Rayleigh, 10 dB): ``y`` and ``c`` from the kernel equal
+   the eager ``modulate -> transmit -> equalize`` chain's on the same
+   inputs bit for bit; both timed with CUDA events (eager, kernel,
+   kernel, eager; the kernel as the round calls it, ``y`` alone), beside
+   the bound from bytes and operations and the floor its SASS implies.
 7. The result: a JSON line of the kernels (``launches`` counts phase 5's,
    5e's, 5f's, 5g's, 5h's, 5i's and 5k's to 5p's runs; K0's row is the
-   trainer's row from 5i: its time, plain time, bound and error),
+   trainer's row from 5i: its time, plain time, bound and error; the
+   channel stage's row counts phase 5c(e)'s launches and has no TPU
+   kernel it replaces),
    ``nvidia-smi``'s line, and as the last line ``{"ok": true, "device":
    {...}}``.
 
@@ -318,6 +337,7 @@ ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
 EDGE = 1e-4  # demod pre-round proximity to a half-integer that may flip
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/approx_channel.cu"
+STAGE_SOURCE = "src/repro_torch/kernels/csrc/phy_channel.cu"
 K0_REPLACES = "src/repro/kernels/approx_channel.py:52"
 K1_REPLACES = "src/repro/kernels/approx_channel.py:405"
 K2_REPLACES = "src/repro/kernels/approx_channel.py:294"
@@ -437,6 +457,31 @@ def _bound(c: int, n: int, k: int, fading: str, word_bits: int,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def _stage_bound(c: int, s: int) -> dict:
+    """Least time for the channel stage on ``(c, s)`` QPSK symbols over
+    Rayleigh fading, writing ``y`` alone as the round does: bytes over the
+    memory rate vs operations over the float32 rate, ``erfinvf`` and each
+    divide counted as one operation.
+
+    Per symbol: four draws, each a threefry-2x32 hash (2 + 20 x 3 + 5 x 3
+    integer ops) and the uniform's bits (xor, shift, or: 3 int), then
+    subtract, fma, max, erfinvf, * sqrt 2 and * scale (6 float); the Gray
+    map (10 int, 4 float); the gain (2 float); the channel product and
+    noise (8 float); Smith's division (|.| twice, compare, 3 divides, 3
+    multiplies, 3 adds: 12 float). In: the int64 index; out: complex64
+    ``y``; a row's two key words and its noise scale.
+    """
+    f_sym = 4 * 6 + 4 + 2 + 8 + 12
+    i_sym = 4 * (2 + 20 * 3 + 5 * 3 + 3) + 10
+    ops = c * s * (f_sym + i_sym)
+    nbytes = c * s * (8 + 8) + c * (16 + 4)
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = ops / PEAK_F32 * 1e3
+    return {"bytes": nbytes, "ops": ops, "bytes_ms": t_bytes,
+            "ops_ms": t_ops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
 # SASS classes of ``sass_symbol_loop``, matched on the opcode in order.
 SASS_CLASSES = (
     ("conversion/MUFU/popc", r"(I2F|F2I|F2F|FRND|MUFU|POPC|FLO)"),
@@ -448,6 +493,68 @@ SASS_CLASSES = (
     ("integer", r"(IMAD|IADD|LOP|SHF|LEA|ISETP|SEL|MOV|VIADD|PRMT|IABS|"
                 r"IMNMX|BMSK|SGXT|CS2R|S2R|P2R|R2P|PLOP|VIMNMX|IMUL|VOTE)"),
 )
+
+
+def _sass_function(lib, tag: str):
+    """``[(address, instruction), ...]`` of the first function of the built
+    library ``lib`` whose mangled name holds ``tag``, from ``cuobjdump
+    -sass``; None without cuobjdump."""
+    import shutil
+
+    from repro_torch.kernels import build
+
+    cuobjdump = shutil.which("cuobjdump")
+    if cuobjdump is None:
+        try:
+            cand = pathlib.Path(build.nvcc_path()).parent / "cuobjdump"
+        except RuntimeError:
+            return None
+        cuobjdump = str(cand) if cand.is_file() else None
+    if cuobjdump is None:
+        return None
+    text = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    func = next(f for f in re.split(r"\n(?=\s*Function : )", text)
+                if tag in f.lstrip().split("\n", 1)[0])
+    return [(int(a, 16), t.strip()) for a, t in re.findall(
+        r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", func)]
+
+
+def _sass_opcode(t: str) -> str:
+    return re.sub(r"^@!?U?P\w+\s+", "", t).split()[0]
+
+
+def _sass_target(t: str):
+    m = re.search(r"\bBRA\s+.*?(0x[0-9a-f]+)", t)
+    return int(m.group(1), 16) if m else None
+
+
+def _sass_loop(ins):
+    """The innermost loop of ``ins`` that holds a MUFU (the sqrt, log and
+    divide seeds), as a slice of ``ins``."""
+    where = {a: k for k, (a, _) in enumerate(ins)}
+    loops = [(where[_sass_target(t)], k) for k, (a, t) in enumerate(ins)
+             if _sass_target(t) is not None and _sass_target(t) < a]
+    lo, hi = min((lh for lh in loops if any(
+        _sass_opcode(t).startswith("MUFU") for _, t in ins[lh[0]:lh[1] + 1])),
+        key=lambda lh: lh[1] - lh[0])
+    return ins[lo:hi + 1]
+
+
+def _sass_counts(body, cold) -> dict:
+    """``{"total": n, class: n, ...}`` of the instructions of ``body`` whose
+    index is not in ``cold``."""
+    import collections
+
+    counts = collections.Counter()
+    for j, (_, t) in enumerate(body):
+        if j not in cold:
+            op = _sass_opcode(t)
+            counts[next((name for name, pat in SASS_CLASSES
+                         if re.match(pat, op)), "other")] += 1
+    order = [name for name, _ in SASS_CLASSES] + ["other"]
+    return {"total": sum(counts.values()),
+            **{name: counts[name] for name in order if counts[name]}}
 
 
 def sass_symbol_loop(lib, kernel: str):
@@ -466,62 +573,59 @@ def sass_symbol_loop(lib, kernel: str):
     global load: the slow paths of sqrt and divide and the large-argument
     reduction of sincos, which no argument of this chain reaches.
     """
-    import collections
-    import re
-    import shutil
-
-    from repro_torch.kernels import build
-
-    cuobjdump = shutil.which("cuobjdump")
-    if cuobjdump is None:
-        try:
-            cand = pathlib.Path(build.nvcc_path()).parent / "cuobjdump"
-        except RuntimeError:
-            return None
-        cuobjdump = str(cand) if cand.is_file() else None
-    if cuobjdump is None:
-        return None
-    text = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
-                          text=True, check=True).stdout
     tag = {"k0": "k0_approx_channel_row", "k1": "k1_approx_channel_batch",
            "k2": "k2_approx_channel_aggregate"}
-    func = next(f for f in re.split(r"\n(?=\s*Function : )", text)
-                if tag[kernel] + "ILi2ELi0ELi32E" in f.lstrip().split("\n", 1)[0])
-    ins = [(int(a, 16), t.strip()) for a, t in re.findall(
-        r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", func)]
-
-    def opcode(t):
-        return re.sub(r"^@!?U?P\w+\s+", "", t).split()[0]
-
-    def target(t):
-        m = re.search(r"\bBRA\s+.*?(0x[0-9a-f]+)", t)
-        return int(m.group(1), 16) if m else None
-
-    where = {a: k for k, (a, _) in enumerate(ins)}
-    loops = [(where[target(t)], k) for k, (a, t) in enumerate(ins)
-             if target(t) is not None and target(t) < a]
-    lo, hi = min((lh for lh in loops if any(
-        opcode(t).startswith("MUFU") for _, t in ins[lh[0]:lh[1] + 1])),
-        key=lambda lh: lh[1] - lh[0])
-    body = ins[lo:hi + 1]
+    ins = _sass_function(lib, tag[kernel] + "ILi2ELi0ELi32E")
+    if ins is None:
+        return None
+    body = _sass_loop(ins)
     cold = set()
     for k, (a, t) in enumerate(body):
-        tgt = target(t)
+        tgt = _sass_target(t)
         if not t.startswith("@") or tgt is None or tgt <= a:
             continue
         skipped = [j for j in range(k + 1, len(body)) if body[j][0] < tgt]
-        if len(skipped) <= 150 and any(opcode(body[j][1]).startswith(
+        if len(skipped) <= 150 and any(_sass_opcode(body[j][1]).startswith(
                 ("CALL", "STL", "LDL", "LDG")) for j in skipped):
             cold.update(skipped)
-    counts = collections.Counter()
-    for j, (_, t) in enumerate(body):
-        if j not in cold:
-            op = opcode(t)
-            counts[next((name for name, pat in SASS_CLASSES
-                         if re.match(pat, op)), "other")] += 1
-    order = [name for name, _ in SASS_CLASSES] + ["other"]
-    return {"total": sum(counts.values()),
-            **{name: counts[name] for name in order if counts[name]}}
+    return _sass_counts(body, cold)
+
+
+def sass_stage_symbol_loop(lib):
+    """Instructions of one symbol of the channel stage's Rayleigh instance
+    (``phy_channel_stage<0>``) in the built library ``lib``, by class, as
+    :func:`sass_symbol_loop` gives them; None without cuobjdump.
+
+    The symbol loop is the innermost loop that holds a MUFU. Its hot path
+    falls through every predicated forward branch and leaves out: what an
+    unconditional forward branch jumps over (the side of an if / else not
+    taken: ``erfinvf``'s rare tail, ``|c_r| < |c_i|``'s side of Smith's
+    division); a forward branch's skip of at most 8 instructions that holds
+    a call (the slow paths of log, sqrt and divide); and the body of any
+    loop inside it (the Gray bits' loop unrolled by four, which k=2 does
+    not enter). It still counts the bits' remainder steps of larger k,
+    about 25 instructions, so it overstates a QPSK symbol's path a little.
+    """
+    ins = _sass_function(lib, "phy_channel_stageILi0E")
+    if ins is None:
+        return None
+    body = _sass_loop(ins)
+    end, cold = body[-1][0], set()
+    for k, (a, t) in enumerate(body):
+        tgt = _sass_target(t)
+        if tgt is None:
+            continue
+        if tgt < a and k != len(body) - 1:
+            cold.update(j for j in range(k + 1) if body[j][0] >= tgt)
+            continue
+        if tgt <= a or tgt > end:
+            continue
+        skipped = [j for j in range(k + 1, len(body)) if body[j][0] < tgt]
+        if not t.startswith("@") or (len(skipped) <= 8 and any(
+                _sass_opcode(body[j][1]).startswith("CALL")
+                for j in skipped)):
+            cold.update(skipped)
+    return _sass_counts(body, cold)
 
 
 def _issue_floor_ms(symbols: int, sass: dict, sms: int, mhz: float) -> float:
@@ -571,7 +675,8 @@ def phase_device(torch, device) -> tuple:
 
 
 def phase_build(device) -> dict:
-    """Builds the kernels; returns ``sass_symbol_loop`` of K0, K1 and K2."""
+    """Builds the kernels; returns ``sass_symbol_loop`` of K0, K1 and K2
+    and, under "stage", ``sass_stage_symbol_loop`` of the channel stage."""
     _log("== phase 2: build")
     if device.type == "cpu":
         _log("build: skipped on the CPU (no nvcc; wrappers run the plain "
@@ -616,6 +721,26 @@ def phase_build(device) -> dict:
             break
         sass[kernel] = counts
         _log(f"  SASS {kernel} (k=2, rayleigh, f32), one symbol, hot path: "
+             + ", ".join(f"{k} {v}" for k, v in counts.items()))
+    lib, log, seconds = build.build("phy_channel")
+    _log(f"build: {lib.name} in {seconds:.1f} s" if seconds else
+         f"build: {lib.name} reused from an earlier build in this checkout")
+    regs, spill, stage = [], 0, False
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            stage = "phy_channel_stage" in line
+        elif stage and "spill stores" in line:
+            spill += int(line.split("bytes spill stores")[0].split(",")[-1])
+        elif stage and "Used" in line and "registers" in line:
+            regs.append(int(line.split("Used")[1].split("registers")[0]))
+    _check(len(regs) == 3, f"ptxas reported {len(regs)} channel-stage "
+           "instances, not 3 (one a fading)")
+    _log(f"  ptxas stage: 3 instances, registers {min(regs)}-{max(regs)}, "
+         f"spill stores {spill} bytes")
+    counts = sass_stage_symbol_loop(lib)
+    if counts is not None:
+        sass["stage"] = counts
+        _log("  SASS stage (k=2, rayleigh), one symbol, hot path: "
              + ", ".join(f"{k} {v}" for k, v in counts.items()))
     return sass
 
@@ -783,6 +908,7 @@ def phase_main_path(torch, device, small: bool) -> tuple:
     from repro_torch.fl import cnn
     from repro_torch.fl.loop import run_fl
     from repro_torch.kernels import approx_channel as ac
+    from repro_torch.kernels import phy_channel
 
     _log("== phase 5: main path at full width")
     n_clients = 4 if small else 100
@@ -795,10 +921,14 @@ def phase_main_path(torch, device, small: bool) -> tuple:
     launches, results = {}, {}
     for fused, kernel in ((False, "k1"), (True, "k2")):
         ac.reset_launch_counts()
+        phy_channel.channel_stage.launches = 0
         res = run_fl(cfg, tcfg, cx, cy, ti, tl, n_rounds=rounds,
                      batch_per_round=32, eval_every=1, seed=0,
                      fused_aggregate=fused, device=device)
         counts = ac.launch_counts()
+        stage = phy_channel.channel_stage.launches
+        _check(stage == 0, f"the kernel path launched the channel stage "
+               f"{stage} times")
         launches[kernel] = counts[kernel]
         launches["k0"] = launches.get("k0", 0) + counts["k0"]
         want = rounds if device.type == "cuda" else 0
@@ -980,6 +1110,7 @@ def _fig3_arms(torch, device, small: bool) -> None:
     from repro_torch.fl import engine
     from repro_torch.fl.loop import run_fl
     from repro_torch.kernels import approx_channel as ac
+    from repro_torch.kernels import phy_channel
 
     n_clients = 4 if small else 100
     cx, cy, ti, tl = _world(n_clients, small)
@@ -994,16 +1125,24 @@ def _fig3_arms(torch, device, small: bool) -> None:
     }
     tm = latency.PhyTimings()
     payload = 21840
-    air = {}
+    air, stage_launches = {}, 0
     for name, tcfg in arms.items():
         if device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(device)
         ac.reset_launch_counts()
+        phy_channel.channel_stage.launches = 0
         res = run_fl(cfg, tcfg, cx, cy, ti, tl, n_rounds=rounds,
                      batch_per_round=32, eval_every=1, seed=0, device=device)
         counts = ac.launch_counts()
+        stage = phy_channel.channel_stage.launches
         _check(counts == {"k0": 0, "k1": 0, "k2": 0},
                f"{name} arm launched kernels: {counts}")
+        # the layered arms' uplink is one channel-stage launch a round on
+        # the card; ECRT is priced analytically and draws nothing
+        want = rounds if device.type == "cuda" and name != "ecrt" else 0
+        _check(stage == want, f"{name} arm launched the channel stage "
+               f"{stage} times, not {want}")
+        stage_launches += stage
         _check(all(math.isfinite(a) for a in res.accuracy),
                f"{name} accuracy is not finite")
         peak = (f"{torch.cuda.max_memory_allocated(device) / 2**30:.3f} GiB"
@@ -1026,13 +1165,14 @@ def _fig3_arms(torch, device, small: bool) -> None:
                f"{name} per-client airtime {per_client} != {want}")
         air[name] = res.airtime_s
         _log(f"  (e) {name}: {n_clients} clients, launches {counts}, "
-             f"accuracy {res.accuracy}, cumulative airtime {res.airtime_s} "
-             f"s, peak memory {peak}")
+             f"channel stage {stage}, accuracy {res.accuracy}, cumulative "
+             f"airtime {res.airtime_s} s, peak memory {peak}")
         for r, ph in enumerate(res.phase_s):
             _log(f"    round {r}: " + ", ".join(
                 f"{k} {v * 1e3:.3f} ms" for k, v in ph.items()))
     # Where a layered-PHY uplink's time goes: the whole batched call at the
-    # round's shape, and the four normals per symbol it draws.
+    # round's shape, and its channel stage alone (Gray QAM, the draws,
+    # fading, noise and zero-forcing: one kernel launch on the card).
     clock = Clock(torch, device)
     x = torch.randn((n_clients, payload), generator=torch.Generator()
                     .manual_seed(10)).mul_(1e-2).to(device)
@@ -1041,11 +1181,14 @@ def _fig3_arms(torch, device, small: bool) -> None:
     up_ms = clock.median_ms(lambda: transport.transmit_batch(
         x, key, arms["approx"], device=device), reps, warmup=1)
     keys = transport.client_keys(key, n_clients).to(device)
-    nrm_ms = clock.median_ms(lambda: [prng.normal(keys, (payload * 16,))
-                                      for _ in range(4)], reps, warmup=1)
+    sym = prng.randint(prng.PRNGKey(11, device=device),
+                       (n_clients, payload * 16), 0, 4)
+    ch_ms = clock.median_ms(lambda: transport._through_channel(
+        sym, keys, arms["approx"]), reps, warmup=1)
     _log(f"  (e) layered uplink alone, {n_clients} x {payload} floats: "
-         f"{up_ms:.3f} ms; of it the four normals per symbol "
-         f"{nrm_ms:.3f} ms ({nrm_ms / up_ms:.0%}) (medians of {reps})")
+         f"{up_ms:.3f} ms; of it the channel stage "
+         f"({'one kernel launch' if device.type == 'cuda' else 'eager'}) "
+         f"{ch_ms:.3f} ms ({ch_ms / up_ms:.1%}) (medians of {reps})")
     ratio = air["ecrt"][-1] / air["approx"][-1]
     want = ((2 * e * 349440 * 1.05 / 13e6 + e * 200e-6)
             / (349440 / 13e6 + 200e-6))
@@ -1053,11 +1196,13 @@ def _fig3_arms(torch, device, small: bool) -> None:
            f"ECRT/approx airtime ratio {ratio} != {want}")
     _log(f"  (e) ECRT/approx airtime ratio {ratio!r} (formula {want!r}, "
          f"E[tx] {e!r})")
+    return stage_launches
 
 
-def phase_layered(torch, device, small: bool) -> None:
+def phase_layered(torch, device, small: bool) -> int:
     """Phase 5c: the layered PHY and the ECRT baseline, which launch none
-    of the kernels."""
+    of K0, K1 and K2; on the card the layered PHY's channel stage is one
+    launch of its own kernel. Returns (e)'s channel-stage launches."""
     from repro_torch.core import modulation, prng
 
     _log("== phase 5c: layered PHY and ECRT")
@@ -1086,7 +1231,7 @@ def phase_layered(torch, device, small: bool) -> None:
     if device.type == "cuda":
         _layered_card_vs_cpu(torch, device, small)
     _ecrt_checks(torch, device, small)
-    _fig3_arms(torch, device, small)
+    return _fig3_arms(torch, device, small)
 
 
 def _round0_uplink_key(seed: int):
@@ -4114,7 +4259,68 @@ def phase_times(torch, device, small: bool, launches: dict, sass: dict,
              f"{min(p1, p2):.3f} ms; bound {b['bound_ms']:.5f} ms "
              f"({b['bound_by']}: {b['bytes'] / 1e6:.3f} MB, "
              f"{b['ops'] / 1e9:.3f} G ops)")
+    rows.append(_stage_times(torch, device, small, launches, sass, mhz))
     return rows
+
+
+def _stage_times(torch, device, small: bool, launches: dict, sass: dict,
+                 mhz) -> dict:
+    """The channel stage at the ``cnn-approx-layered`` cell's shape: kernel
+    against the eager chain bit for bit, both timed; its ``kernels`` row."""
+    from repro_torch.core import channel, modulation, prng, transport
+
+    c, s = (4, 2048 * 16) if small else (100, 21840 * 16)
+    clock = Clock(torch, device)
+    cfg = transport.TransportConfig(
+        modulation="qpsk", channel=channel.ChannelConfig(snr_db=10.0))
+    sym = prng.randint(prng.PRNGKey(6, device=device), (c, s), 0, 4)
+    keys = transport.client_keys(prng.PRNGKey(7, device=device), c)
+
+    def eager():
+        r, cc = channel.transmit(modulation.modulate(sym, cfg.scheme), keys,
+                                 cfg.channel)
+        return channel.equalize(r, cc), cc
+
+    y, cc = transport._through_channel(sym, keys, cfg, gain=True)
+    want_y, want_c = eager()
+    differ = 0
+    for got, want in ((y, want_y), (cc, want_c)):
+        a, b = torch.view_as_real(got), torch.view_as_real(want)
+        differ += int(((_bits(torch, a) != _bits(torch, b))
+                       & ~(torch.isnan(a) & torch.isnan(b))).sum())
+    _check(differ == 0, f"channel stage: {differ} values of y and c differ "
+           "from the eager chain")
+    err = float((y - want_y).abs().max())
+    del y, cc, want_y, want_c
+    reps, preps = (50, 3) if device.type == "cuda" else (3, 2)
+    kern = lambda: transport._through_channel(sym, keys, cfg)  # noqa: E731
+    # eager, kernel, kernel, eager: the two orders average out drift
+    p1 = clock.median_ms(eager, preps, warmup=1)
+    k1 = clock.median_ms(kern, reps)
+    k2 = clock.median_ms(kern, reps)
+    p2 = clock.median_ms(eager, preps, warmup=1)
+    b = _stage_bound(c, s)
+    ms, plain_ms = min(k1, k2), min(p1, p2)
+    where = "kernel" if device.type == "cuda" else "eager (CPU)"
+    _log(f"  channel stage at C={c}, S={s} (QPSK, rayleigh, 10 dB): y and c "
+         f"equal the eager chain's bit for bit; {where} {ms:.4f} ms (runs "
+         f"{k1:.4f}, {k2:.4f}), eager {plain_ms:.3f} ms (runs {p1:.3f}, "
+         f"{p2:.3f}); bound {b['bound_ms']:.4f} ms ({b['bound_by']}: "
+         f"{b['bytes'] / 1e6:.2f} MB -> {b['bytes_ms']:.4f} ms, "
+         f"{b['ops'] / 1e9:.2f} G ops -> {b['ops_ms']:.4f} ms)")
+    counts = sass.get("stage")
+    if counts and mhz:
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        floor = _issue_floor_ms(c * s, counts, sms, mhz)
+        _log(f"  channel stage: issue-rate floor {floor:.4f} ms "
+             f"({counts['total']} instructions x {c * s / 1e6:.2f} M symbols "
+             f"over {sms} SMs x 128 lanes at {mhz:.0f} MHz); kernel at "
+             f"{floor / ms:.0%} of it")
+    return {"name": "phy_channel", "route": "cuda", "source":
+            STAGE_SOURCE, "replaces": None,
+            "launches": launches["phy_channel"], "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b["bound_ms"],
+            "bound_by": b["bound_by"], "library_ms": None}
 
 
 def main(argv=None) -> int:
@@ -4151,7 +4357,7 @@ def main(argv=None) -> int:
         launches, main_runs = phase_main_path(torch, device, small)
         if device.type == "cuda":
             phase_reference(torch, device)
-        phase_layered(torch, device, small)
+        launches["phy_channel"] = phase_layered(torch, device, small)
         buckets, link_runs = phase_link(torch, device, small)
         for k, v in phase_downlink(torch, device, small).items():
             launches[k] += v

@@ -16,7 +16,9 @@ Counterpart of ``repro.core.transport``. Modes:
 aggregate) or on the layered PHY (``use_kernel=False``, the default): the
 reference's ``float_codec -> modulation -> channel -> demod`` chain as
 tensor operations, with the reference's ``threefry`` draws. Both run on
-the payload's device.
+the payload's device. On CUDA the layered chain's channel stage (Gray
+QAM, the draws, fading, noise and zero-forcing: :func:`_through_channel`)
+is one launch of its own kernel, the eager chain's bits.
 
 Mixed-mode batches (:func:`transmit_batch_adaptive`, the link-adaptation
 hook) give client ``i`` the table row ``cfgs[mode_idx[i]]``. The
@@ -79,6 +81,7 @@ from repro_torch.core import keylanes
 from repro_torch.core import modulation as mod_lib
 from repro_torch.core import prng
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.kernels import phy_channel as phy_kernel
 from repro_torch.obs import spans
 
 __all__ = [
@@ -238,12 +241,25 @@ def _payload(x, device, ndim: int, name: str) -> torch.Tensor:
 
 
 def _through_channel(sym_stream: torch.Tensor, keys: torch.Tensor,
-                     cfg: TransportConfig, snr_vec=None):
+                     cfg: TransportConfig, snr_vec=None, *, gain=False):
     """Symbol indices ``(C, S)`` -> Gray QAM -> channel -> zero-forcing
-    equalization: ``(y, c)``, complex64 ``(C, S)``."""
+    equalization: ``(y, c)``, complex64 ``(C, S)``. On the CPU the eager
+    chain; on CUDA one launch of the channel-stage kernel
+    (:func:`~repro_torch.kernels.phy_channel.channel_stage`, the same
+    bits). On both devices ``c`` is returned only where ``gain`` asks for
+    it, else ``None``."""
+    if sym_stream.device.type == "cuda":
+        ch, dev = cfg.channel, sym_stream.device
+        npow = (ch.noise_power if snr_vec is None
+                else channel_lib.noise_power_for(ch, snr_vec, dev))
+        return phy_kernel.channel_stage(
+            sym_stream.to(torch.int64).contiguous(),
+            keys.to(dev).contiguous(), npow, ch.large_scale_gain,
+            bits_per_symbol=cfg.scheme.bits_per_symbol, fading=ch.fading,
+            block_len=ch.block_len, gain=gain)
     tx = mod_lib.modulate(sym_stream, cfg.scheme)
     r, c = channel_lib.transmit(tx, keys, cfg.channel, snr_db=snr_vec)
-    return channel_lib.equalize(r, c), c
+    return channel_lib.equalize(r, c), (c if gain else None)
 
 
 def _wire_bits(cfg: TransportConfig) -> int:
@@ -380,7 +396,7 @@ def _ecrt_real(x: torch.Tensor, keys: torch.Tensor, cfg: TransportConfig,
     for t in range(cfg.max_tx):
         if bool(ok.all()):
             break  # the reference's later rounds change nothing from here
-        y, cc = _through_channel(sym, tx_keys[t], cfg, snr_vec)
+        y, cc = _through_channel(sym, tx_keys[t], cfg, snr_vec, gain=True)
         nv = channel_lib.noise_var_post_eq(cc, cfg.channel, snr_db=snr_vec)
         llr = mod_lib.bit_llrs(y, nv, cfg.scheme).reshape(c, n_cw, n_code)
         pend = ~ok

@@ -36,8 +36,17 @@ K2's int limit) matches the plain version on tiles either side of the
 counter wrap and of word 2**31, and its flipped bits equal K0's int32
 count modulo 2**32.
 
-The layered PHY and the ECRT chain, which launch no kernel, are held
-against themselves on the CPU: the layered batch under the same edge rule
+The layered PHY's channel stage (Gray QAM, the threefry fading and noise,
+zero-forcing) is one launch of its own kernel on the card, outside
+``launch_counts()``: it equals the eager chain run on the card bit for bit
+(``y`` and the gain ``c``, NaN payloads taken as equal) at every
+modulation and fading, a scalar or per-row SNR with an inf row, rows of 1,
+7 and 349,440 symbols and the FL cell's full ``(100, 349,440)``, and a
+layered round launches it once. Its normal of 32 random bits equals
+``prng.normal``'s torch ops on every one of the 2**23 mantissas.
+
+The layered PHY and the ECRT chain, which launch none of K0, K1 and K2,
+are held against themselves on the CPU: the layered batch under the same edge rule
 with the tolerance of ``layered_edge`` (its normals, ``torch.erfinv``, are
 the one step that may round differently on the card), a batch row against
 the single-client call bit for bit on the card, and LDPC encode, syndrome
@@ -1578,3 +1587,119 @@ def test_round_engine_staged_equals_take_along(cuda_device, algo):
     assert res.accuracy == res_p.accuracy
     for k in params:
         assert torch.equal(_bits(params[k]), _bits(params_p[k])), k
+
+
+def _eager_stage(sym, keys, cfg, snr_vec):
+    """The layered channel stage as eager tensor operations on the
+    symbols' device: ``(y, c)``."""
+    from repro_torch.core import modulation as TM
+
+    r, c = TCH.transmit(TM.modulate(sym, cfg.scheme), keys, cfg.channel,
+                        snr_db=snr_vec)
+    return TCH.equalize(r, c), c
+
+
+def _same_complex(a, b):
+    """Bit for bit, any NaN equal to any NaN."""
+    ra, rb = torch.view_as_real(a), torch.view_as_real(b)
+    diff = (_bits(ra) != _bits(rb)) & ~(torch.isnan(ra) & torch.isnan(rb))
+    return not bool(diff.any())
+
+
+def _stage_case(device, mod, fading, snr, c, s, block_len=11):
+    from repro_torch.core import prng as P
+
+    cfg = TT.TransportConfig(modulation=mod, channel=TCH.ChannelConfig(
+        snr_db=snr, fading=fading, block_len=block_len))
+    k = cfg.scheme.bits_per_symbol
+    sym = P.randint(P.PRNGKey(s + k, device=device), (c, s), 0, 1 << k)
+    keys = TT.client_keys(P.PRNGKey(31, device=device), c)
+    snr_vec = (None if isinstance(snr, float)
+               else TCH.snr_db_vector(snr, c, device))
+    return sym, keys, cfg, snr_vec
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("snr", ["scalar", "per_row"])
+@pytest.mark.parametrize("s", [1, 7, 349440])
+@pytest.mark.parametrize("fading", ["rayleigh", "awgn", "block_rayleigh"])
+@pytest.mark.parametrize("mod", ["qpsk", "16qam", "64qam", "256qam"])
+def test_channel_stage_kernel_equals_eager_chain(cuda_device, mod, fading, s,
+                                                 snr):
+    """The kernel's ``y`` and ``c`` equal the eager chain's on the card bit
+    for bit; block_rayleigh's blocks of 11 divide none of the rows; the
+    per-row SNR's inf row has zero noise with its signed zeros."""
+    snr_db = (float("inf"), 10.0, -3.0, 30.0) if snr == "per_row" else 7.0
+    sym, keys, cfg, snr_vec = _stage_case(cuda_device, mod, fading, snr_db,
+                                          4, s)
+    y, c = TT._through_channel(sym, keys, cfg, snr_vec, gain=True)
+    want_y, want_c = _eager_stage(sym, keys, cfg, snr_vec)
+    assert y.dtype == c.dtype == torch.complex64 and y.shape == (4, s)
+    assert _same_complex(y, want_y) and _same_complex(c, want_c)
+
+
+@pytest.mark.cuda
+def test_channel_stage_kernel_at_the_cells_shape(cuda_device):
+    """The FL cell's stage, 100 rows of 21,840 words x 16 QPSK symbols at
+    10 dB over Rayleigh fading, equals the eager chain bit for bit."""
+    sym, keys, cfg, _ = _stage_case(cuda_device, "qpsk", "rayleigh", 10.0,
+                                    100, 349440, block_len=64)
+    y, c = TT._through_channel(sym, keys, cfg, None, gain=True)
+    want_y, want_c = _eager_stage(sym, keys, cfg, None)
+    assert _same_complex(y, want_y) and _same_complex(c, want_c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gain", [False, True])
+def test_through_channel_launches_the_stage_once(cuda_device, gain):
+    from repro_torch.kernels import phy_channel as PK
+
+    sym, keys, cfg, _ = _stage_case(cuda_device, "16qam", "rayleigh", 10.0,
+                                    3, 5000)
+    TAC.reset_launch_counts()
+    before = PK.channel_stage.launches
+    y, c = TT._through_channel(sym, keys, cfg, None, gain=gain)
+    assert PK.channel_stage.launches == before + 1
+    assert TAC.launch_counts() == {"k0": 0, "k1": 0, "k2": 0}
+    assert (c is not None) == gain
+    assert _same_complex(y, _eager_stage(sym, keys, cfg, None)[0])
+
+
+@pytest.mark.cuda
+def test_layered_round_launches_the_stage_once_a_round(cuda_device):
+    from repro_torch.configs.mnist_cnn import config
+    from repro_torch.fl.loop import run_fl
+    from repro_torch.kernels import phy_channel as PK
+
+    rng = np.random.default_rng(0)
+    cx = rng.uniform(0, 1, (4, 16, 28, 28)).astype(np.float32)
+    cy = rng.integers(0, 10, (4, 16)).astype(np.int32)
+    cfg = TT.TransportConfig(mode="approx",
+                             channel=TCH.ChannelConfig(snr_db=10.0))
+    TAC.reset_launch_counts()
+    before = PK.channel_stage.launches
+    res = run_fl(config(), cfg, cx, cy, cx[0], cy[0], n_rounds=3,
+                 batch_per_round=8, eval_every=1)
+    assert PK.channel_stage.launches == before + 3
+    assert TAC.launch_counts() == {"k0": 0, "k1": 0, "k2": 0}
+    assert all(np.isfinite(res.accuracy))
+
+
+@pytest.mark.cuda
+def test_kernel_normal_equals_prng_normal_on_every_mantissa(cuda_device,
+                                                            monkeypatch):
+    """The kernel's normal of 32 random bits equals ``prng.normal``'s torch
+    ops on the card (uniform's float64 fma, ``torch.erfinv``, ``* sqrt 2``)
+    on all 2**23 values of the top 23 bits, the only ones either reads:
+    the stage's bit-for-bit contract rests on CUDA's ``erfinvf`` being
+    torch's CUDA ``erfinv`` on each of them."""
+    from repro_torch.core import prng as P
+    from repro_torch.kernels import phy_channel as PK
+
+    m = torch.arange(1 << 23, dtype=torch.int64, device=cuda_device)
+    bits = (m << 9) | (m * 37 & 511)  # low bits that both must drop
+    monkeypatch.setattr(P, "random_bits", lambda key, shape=(): bits)
+    want = P.normal(P.PRNGKey(0, device=cuda_device), bits.shape)
+    got = PK.normal_of_bits(
+        torch.where(bits >= 1 << 31, bits - (1 << 32), bits).to(torch.int32))
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
